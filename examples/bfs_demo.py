@@ -1,5 +1,5 @@
 """BFS demo — the reference's Demo/Program/bfs analog, using both the GrB
-op tier and the fused TPU tier.  Run: python examples/bfs_demo.py"""
+op tier and the fused tier.  Run: python examples/bfs_demo.py"""
 
 import sys, pathlib
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))

@@ -24,14 +24,14 @@ if __name__ == "__main__":
     A = gb.Matrix.from_scipy(S)
     results = {}
 
-    def worker(tid, pallas):
-        with Context(pallas_enabled=pallas, name=f"worker{tid}"):
+    def worker(tid, chunk):
+        with Context(chunk=chunk, name=f"worker{tid}"):
             x = gb.Vector.from_dense(np.ones(500))
             y = gb.mxv(A, x, gb.semiring.PLUS_TIMES)
             results[tid] = float(np.asarray(
                 gb.reduce_scalar(y, gb.monoid.PLUS)))
 
-    threads = [threading.Thread(target=worker, args=(i, i % 2 == 0))
+    threads = [threading.Thread(target=worker, args=(i, 4096 << i))
                for i in range(4)]
     for t in threads:
         t.start()

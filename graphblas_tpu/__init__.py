@@ -1,6 +1,6 @@
-"""graphblas_tpu — a TPU-native GraphBLAS framework.
+"""graphblas_tpu — a GraphBLAS framework in JAX.
 
-A from-scratch JAX/XLA/Pallas implementation of the GraphBLAS C API v2.1
+A from-scratch JAX/XLA implementation of the GraphBLAS C API v2.1
 capability set (reference: SuiteSparse:GraphBLAS v9.1.0): sparse linear
 algebra over arbitrary semirings, with masks, accumulators, non-blocking
 mode, 4 storage formats x 2 orientations, and a net-new distributed layer
@@ -9,29 +9,14 @@ over jax.sharding meshes.
 Architecture: see ARCHITECTURE.md.  The reference's FactoryKernels (928k
 generated LoC) + runtime C JIT collapse into jax.jit tracing of polymorphic
 operator callables; its OpenMP task slicing becomes vectorized array
-programs + Pallas kernels; its missing multi-node story becomes shard_map
-over ICI/DCN meshes.
+programs compiled by XLA; its missing multi-device story becomes shard_map
+over a jax.sharding mesh.
 """
 
 # GraphBLAS requires 64-bit types (int64 indices/values, fp64).
 import jax as _jax
 
 _jax.config.update("jax_enable_x64", True)
-
-# Route large numpy allocations through mmap + MADV_HUGEPAGE: this host
-# faults anonymous 4 KB pages ~6x slower than huge pages (measured ~0.3
-# vs ~1.8+ GB/s), and the route-plan builders are fault-bound without it.
-# (reference analog: GxB_init's user-supplied malloc table,
-# Source/GB_Global.c:83-180)
-import os as _os
-
-if not _os.environ.get("GB_NO_HUGEPAGE_ALLOC"):
-    try:
-        from .utils import _hostmem as _hm
-
-        _hm.install()
-    except Exception:  # pragma: no cover - optional native speedup
-        pass
 
 from .core import config as _cfg
 from .core import context as context

@@ -1,2 +1,3 @@
-from .graph import (bfs_levels, bfs_levels_fused, bfs_parents, pagerank,
-                    pagerank_fused, triangle_count)
+from .graph import (bfs_levels, bfs_levels_fused, bfs_parents,
+                    connected_components, pagerank, pagerank_fused, sssp,
+                    sssp_grb, triangle_count)

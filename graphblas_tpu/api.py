@@ -102,8 +102,7 @@ def vxm(u, A, semiring, *, C=None, mask=None, accum=None, desc=NULL,
 
 
 def vxm_chain(u, A, semiring, steps):
-    """K-step vxm pipeline fused into one dispatch (SpMSpV packaging for
-    remote-dispatch amortization; see ops/mxm.vxm_chain)."""
+    """K-step vxm pipeline: y0 = u; yk = y(k-1) (+).(x) A."""
     from .ops import mxm as _mxm
     return _mxm.vxm_chain(u, A, semiring, steps)
 

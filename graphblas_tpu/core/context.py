@@ -2,9 +2,9 @@
 Source/GB_Context.c: per-user-thread object holding nthreads_max/chunk,
 engaged via OpenMP threadprivate TLS).
 
-On TPU the resources a context governs are different: which device ops
-dispatch to, the work-chunking granularity, and whether Pallas kernels are
-eligible.  Same shape: thread-local, engage/disengage, nestable via `with`.
+Here the resources a context governs are different: which device ops
+dispatch to and the work-chunking granularity.  Same shape: thread-local,
+engage/disengage, nestable via `with`.
 """
 
 from __future__ import annotations
@@ -24,7 +24,6 @@ class Context:
 
     device: Any = None          # jax device for dispatch (None = default)
     chunk: int = 65536          # work granularity (GxB_CHUNK analog)
-    pallas_enabled: bool = True
     name: str = ""
 
     def engage(self) -> "Context":
@@ -47,9 +46,7 @@ class Context:
 def current() -> Context:
     ctx = getattr(_tls, "ctx", None)
     if ctx is None:
-        ctx = Context(chunk=CFG.GLOBAL.chunk,
-                      pallas_enabled=CFG.GLOBAL.pallas_enabled,
-                      name="world")
+        ctx = Context(chunk=CFG.GLOBAL.chunk, name="world")
         _tls.ctx = ctx
     return ctx
 

@@ -1,4 +1,4 @@
-"""GraphBLAS error model, TPU-native edition.
+"""GraphBLAS error model.
 
 The reference returns ``GrB_Info`` codes from all 859 API functions and keeps
 a per-object error-logger string (reference: Source/GrB_error.c,

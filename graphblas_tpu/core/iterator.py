@@ -2,7 +2,7 @@
 Source/GB_Iterator_*.c — attach/seek/next as static-inline functions over
 the 4 formats).
 
-On TPU, per-entry device round-trips would be absurd; the iterator
+On an accelerator, per-entry device round-trips would be absurd; the iterator
 materializes the coordinate streams once (one device->host transfer) and
 then iterates host-side at numpy speed — same amortized cost as the
 reference's pointer chasing, same API shape."""

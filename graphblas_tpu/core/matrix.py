@@ -1,11 +1,11 @@
-"""The TPU-native GraphBLAS matrix object.
+"""The GraphBLAS matrix object.
 
 Reference: Source/Shared/GB_matrix.h — one struct for Matrix/Vector/Scalar,
 8 storage formats = {hypersparse, sparse, bitmap, full} x {by-row (CSR),
 by-col (CSC)}, iso-valued matrices (GB_matrix.h:495-513), pending tuples and
 zombies for non-blocking mode (GB_matrix.h:313-390).
 
-TPU redesign decisions (NOT a port):
+Redesign decisions (NOT a port):
   * A Matrix is a JAX pytree: leaves are device arrays (indptr/h/indices/
     values/bitmap), aux data is static metadata (shape/format/orientation/
     iso/dtype).  Any op can therefore flow through jit/vmap/shard_map.
@@ -615,42 +615,6 @@ class Matrix:
                 print(f"  ({r[k]},{c[k]})  {v[k]}", file=out)
             if shown < len(r):
                 print(f"  ... ({len(r) - shown} more)", file=out)
-
-    def optimize(self, plan_path=None) -> "Matrix":
-        """Build (or load) the static-routing SpMV plan for this matrix —
-        the TPU-era analog of building the hyper-hash / choosing an AxB
-        method up front (reference: GB_hyper_hash_build.c; GxB pack/unpack
-        move semantics for the serialized form).  Returns the CSR-sparse
-        view whose mxv/vxm and fused-algorithm calls ride the routing
-        engine.  ``plan_path``: optional .npz cache — loaded when present,
-        else the freshly built plan is saved there."""
-        import os
-        from ..kernels import spmv_route
-        from ..core.types import FP32
-        from . import config as _cfg
-        Ar = self.to_format(SPARSE, ROW)
-        if Ar.dtype.np_dtype != np.float32 or Ar.iso:
-            Ar = Ar.astype(FP32)
-        if spmv_route.plan_for(Ar.indptr, Ar.indices, Ar.values,
-                               Ar.shape, build=False) is not None:
-            return Ar
-        plan = None
-        if plan_path and os.path.exists(plan_path):
-            plan = spmv_route.load_plan(plan_path)
-            if plan.g.nnz != int(Ar.nvals):     # stale cache
-                plan = None
-            else:
-                _cfg.burble("optimize: loaded route plan from %s",
-                            plan_path)
-        if plan is None:
-            plan = spmv_route.plan_for(Ar.indptr, Ar.indices, Ar.values,
-                                       Ar.shape)
-            if plan_path:
-                spmv_route.save_plan(plan, plan_path)
-                _cfg.burble("optimize: saved route plan to %s", plan_path)
-        spmv_route.register_plan(Ar.indptr, Ar.indices, Ar.values,
-                                 Ar.shape, plan)
-        return Ar
 
     def memory_usage(self) -> int:
         """GxB_Matrix_memoryUsage."""

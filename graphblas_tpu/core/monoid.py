@@ -3,7 +3,7 @@ terminal) — reference: Source/Shared/GB_opaque.h:411-426, built-in list in
 Source/GB_ops.c:584-660 (77+ monoids with terminal values).
 
 Identity and terminal are dtype-dependent (MIN identity is +inf for floats,
-INT_MAX for ints), so they are functions of the dtype here.  On TPU the
+INT_MAX for ints), so they are functions of the dtype here.  Here the
 terminal value drives early-exit only in scalar while-loop reductions; the
 vectorized reducers keep it as metadata.
 """

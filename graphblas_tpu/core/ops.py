@@ -3,7 +3,7 @@
 The reference carries every operator as a C function pointer plus its C
 source string for the runtime JIT (reference: Source/Shared/GB_Operator.h,
 Source/GB_ops.c — ~80 unary ops, ~300 typed binary ops, index-unary ops,
-positional ops).  On TPU the entire FactoryKernels/JIT apparatus collapses:
+positional ops).  Here the entire FactoryKernels/JIT apparatus collapses:
 an operator IS a traceable Python callable, and ``jax.jit`` specializes every
 kernel for (op x dtype x sparsity) for free.
 
@@ -399,7 +399,7 @@ VALUELE = IndexUnaryOp("GrB_VALUELE", lambda x, i, j, k: x <= k,
 
 def unary_op(fn, name="user_unary", ztype=None) -> UnaryOp:
     """User-defined unary op (reference: GrB_UnaryOp_new) — any traceable
-    callable works; no C source string or JIT needed on TPU."""
+    callable works; no C source string or JIT needed."""
     return UnaryOp(name, fn, ztype=T.lookup(ztype) if ztype else None)
 
 

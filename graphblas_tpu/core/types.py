@@ -26,7 +26,7 @@ class Type:
     ``shape`` != () makes this a user-defined struct/array type (the
     reference's GrB_Type_new with sizeof(struct): Demo gauss/wildtype
     types).  Values of such a type are arrays of ``dtype`` with trailing
-    dims ``shape`` — a struct of homogeneous fields stored SoA-on-TPU.
+    dims ``shape`` — a struct of homogeneous fields stored SoA on the device.
     User operators receive/return (..., *shape) arrays."""
 
     name: str
@@ -80,8 +80,8 @@ FP64 = Type("GrB_FP64", np.float64)
 FC32 = Type("GxB_FC32", np.complex64)
 FC64 = Type("GxB_FC64", np.complex128)
 
-# TPU-native extension: bfloat16 — not in the reference; the MXU's natural
-# input type, exposed so dense mxm paths can ride the systolic array.
+# Extension: bfloat16 — not in the reference; the tensor cores' natural
+# input type, exposed so dense mxm paths can use it.
 BF16 = Type("GxB_BF16", jnp.bfloat16)
 
 ALL_TYPES = [BOOL, INT8, INT16, INT32, INT64, UINT8, UINT16, UINT32, UINT64,

@@ -1,7 +1,7 @@
 """GrB_apply: unary / bound-binary / index-unary operator application with
 optional fused transpose (reference: Source/GB_apply_op.c, GB_apply.c).
 
-TPU shape: pattern is unchanged, so apply is one elementwise map over the
+Shape here: pattern is unchanged, so apply is one elementwise map over the
 values array (plus coordinate streams for positional/index ops) — XLA fuses
 the whole thing, and it composes with the O(1) logical transpose."""
 

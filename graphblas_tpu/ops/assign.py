@@ -2,7 +2,7 @@
 
 Reference: Source/GB_assign.c, GB_subassigner_method.c — ~30 numbered
 methods keyed on {scalar?, accum?, mask?, comp?, replace?, C format,
-aliasing} (20.3k LoC).  TPU redesign (SURVEY.md §7 "hard parts"): a handful
+aliasing} (20.3k LoC).  Redesign (SURVEY.md §7 "hard parts"): a handful
 of orthogonal fused paths —
 
   * subassign  = extract region -> writeback on the subregion -> splice

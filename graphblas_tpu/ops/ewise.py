@@ -3,7 +3,7 @@ eWiseUnion (union with fill scalars).
 
 Reference: Source/GB_add.h (3-phase union merge), Source/GB_emult.h
 (methods 01-10 keyed on sparsity combos), Source/GB_ewise.c (dense fast
-paths GB_ewise_fulla/fulln).  TPU redesign: two fused paths —
+paths GB_ewise_fulla/fulln).  Redesign: two fused paths —
 
   * dense path (any operand bitmap/full): one jnp.where expression; XLA
     fuses it into a single VPU kernel (the fulla/fulln analog, for free).

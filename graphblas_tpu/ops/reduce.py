@@ -1,7 +1,7 @@
 """GrB_reduce: matrix -> vector (row-wise monoid reduce) and matrix/vector
 -> scalar (reference: Source/GB_reduce_to_scalar.c — panel reduction with
 terminal early-exit; GB_reduce_to_vector.c implements to-vector as mxm with
-PLUS_FIRST, which on TPU is just a segmented reduce)."""
+PLUS_FIRST, which here is just a segmented reduce)."""
 
 from __future__ import annotations
 

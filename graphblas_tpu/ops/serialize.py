@@ -5,7 +5,7 @@ LZ4/LZ4HC/ZSTD per descriptor), GxB_Serialized_get (query blob metadata
 without deserializing), GxB_Matrix_pack/unpack_* (O(1) array adoption for
 all 8 formats).
 
-TPU redesign: the blob is a self-describing header (JSON, so any tool can
+Redesign: the blob is a self-describing header (JSON, so any tool can
 inspect it) + per-array compressed blocks.  Codecs are pluggable; the
 native C++ codec module (native/) registers 'xz'-class codecs when built,
 and zlib is always available.  Checkpoint/resume for device state =

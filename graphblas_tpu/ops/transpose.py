@@ -1,6 +1,6 @@
 """Transpose (reference: Source/GB_transpose.c).
 
-TPU redesign: a logical transpose of a sparse matrix is O(1) — swap the
+Redesign: a logical transpose of a sparse matrix is O(1) — swap the
 shape and flip the orientation tag; the CSR arrays of A are exactly the CSC
 arrays of A'.  The reference pays a bucket/sort transpose only to keep its
 preferred orientation; here reorientation happens lazily in to_orient()

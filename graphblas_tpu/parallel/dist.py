@@ -10,7 +10,7 @@ insert collectives):
     Padding entries carry (col=0, val=additive-identity) plus an explicit
     local nnz count, so any semiring treats them as no-ops.
   * SpMV (mxv): y_shard = local CSR SpMV of the all-gathered x — one
-    all_gather over ICI, compute fully local (the halo exchange of
+    all_gather over the interconnect, compute fully local (the halo exchange of
     SURVEY.md §7 step 7).
   * vxm / transpose-SpMV: each shard produces partial contributions to ALL
     destination columns; one psum_scatter combines and re-shards — this is
@@ -19,8 +19,9 @@ insert collectives):
     shard_map while_loop — collectives overlap with local compute under
     XLA's scheduler; no per-iteration host dispatch.
 
-Chip counts stay powers of the mesh; tests run on 8 virtual CPU devices
-(tests/conftest.py), bench on real TPU.
+Tests run on 8 virtual CPU devices (tests/conftest.py); chip_smoke.py
+--devices 4 runs the same calls on four GPUs, where XLA hands the
+collectives to NCCL.
 """
 
 from __future__ import annotations
@@ -287,7 +288,7 @@ def _combine_axis(partial, axis, add):
 def dist_mxv(A: DistMatrix, x, sr: Semiring = SR.PLUS_TIMES, out_dtype=None,
              mask=None, accum=None, c=None, mask_complement=False,
              overlap=False):
-    """y = c<mask> (accum) A (+).(x) x : all_gather x over ICI, local SpMV
+    """y = c<mask> (accum) A (+).(x) x : all_gather x, local SpMV
     per shard; mask/accum applied IN-SHARD (dense length-n mask and c,
     sharded like y — the GrB C<M>+=... semantics on the dist tier).
 
@@ -296,8 +297,8 @@ def dist_mxv(A: DistMatrix, x, sr: Semiring = SR.PLUS_TIMES, out_dtype=None,
     multiplies the entries whose columns fall in the x block it currently
     holds while the block rotates one hop per step.  The next block's
     ppermute is issued BEFORE the step's compute consumes the current one,
-    so XLA's latency-hiding scheduler runs the ICI transfer under the
-    VPU work; same total comm volume as the all_gather, but pipelined.
+    so XLA's latency-hiding scheduler runs the transfer under the
+    local compute; same total comm volume as the all_gather, but pipelined.
     Every entry's column lives in exactly ONE block, so per-entry products
     are written once (a select, no cross-step monoid combine) and a single
     segment-reduce finishes the rows — exact for ANY add monoid.
@@ -487,9 +488,8 @@ def dist_bfs_levels(A: DistMatrix, source: int, frontier_cap: int = None):
             def dense_exchange(_):
                 partial = jnp.zeros((n_pad,), jnp.int32).at[tgt].max(
                     hits.astype(jnp.int32), mode="drop")
-                # OR-reduce-scatter rides the ICI ring (round-4: was a
-                # full pmax + local slice at 2x the collective volume);
-                # sum-of-bools >= 1 is OR
+                # OR-reduce-scatter (half the collective volume of a
+                # full pmax + local slice); sum-of-bools >= 1 is OR
                 return jax.lax.psum_scatter(
                     partial, axis, scatter_dimension=0, tiled=True) > 0
 
@@ -540,10 +540,9 @@ def dist_pagerank(A: DistMatrix, damping=0.85, tol=1e-6, max_iter=100):
             partial = jnp.zeros((n_pad,), jnp.float32).at[tgt].add(
                 contrib, mode="drop")
             dang_local = jnp.sum(jnp.where((outdeg == 0) & real, r, 0.0))
-            # reduce-scatter: each device keeps only its row block, riding
-            # the ICI ring at half the psum+slice collective volume
-            # (round-4 ask #10; scaling-book recipe: psum_scatter for
-            # partial-sum exchange)
+            # reduce-scatter: each device keeps only its row block, at half
+            # the psum+slice collective volume (scaling-book recipe:
+            # psum_scatter for partial-sum exchange)
             mine = jax.lax.psum_scatter(partial, axis,
                                         scatter_dimension=0, tiled=True)
             dang = jax.lax.psum(dang_local, axis)
@@ -573,7 +572,7 @@ def dist_mxm(A: "DistMatrix", B: "DistMatrix", sr: Semiring = SR.PLUS_TIMES,
     """C = A (+).(x) B with both operands row-block partitioned.
 
     Block-row SUMMA: C_i = A_i (+).(x) B — every device all-gathers B's
-    shards over ICI and runs a fully local ESC SpGEMM (expand by exact
+    shards and runs a fully local ESC SpGEMM (expand by exact
     flop count, sort by (row, col) key, segmented-reduce under the add
     monoid).  Output capacities are sized on the host from the global
     structure (static shapes), padded uniformly across shards.
@@ -643,7 +642,7 @@ def dist_mxm(A: "DistMatrix", B: "DistMatrix", sr: Semiring = SR.PLUS_TIMES,
         out_specs=(P(axis), P(axis), P(axis), P(axis)),
         check_vma=False)
     def step(ipa, ixa, va, nza, ipb, ixb, vb, nzb, crw):
-        # gather B fully local (block-row SUMMA round; ICI all-gather)
+        # gather B fully local (block-row SUMMA round; all-gather)
         gipb = jax.lax.all_gather(ipb[0], axis)          # [ndev, rpB+1]
         gixb = jax.lax.all_gather(ixb[0], axis)
         gvb = jax.lax.all_gather(vb[0], axis)

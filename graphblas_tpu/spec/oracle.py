@@ -1,6 +1,6 @@
 """Executable specification: dense numpy mimics of every GraphBLAS op.
 
-This is the TPU build's equivalent of the reference's Octave "spec" files
+This is this package's equivalent of the reference's Octave "spec" files
 (Test/GB_spec_mxm.m, GB_spec_accum_mask.m, ... — reference: Test/Contents.m)
 — a naive, obviously-correct dense implementation with explicit pattern
 arrays, defining the semantics (typecast order, accum/mask behavior,

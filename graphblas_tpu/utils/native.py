@@ -25,8 +25,6 @@ def _load():
     if _lib is not None or _tried:
         return _lib
     _tried = True
-    from . import hostmem
-    hostmem.tune()
     try:
         if not _LIB_PATH.exists():
             subprocess.run(["make", "-C", str(_NATIVE_DIR)], check=True,
@@ -52,129 +50,11 @@ def _load():
             ctypes.c_char_p, ctypes.POINTER(ctypes.c_int64),
             ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
             ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
-        lib.gbtpu_benes_route.argtypes = [
-            ctypes.POINTER(ctypes.c_int32), ctypes.c_int64, ctypes.c_int64,
-            ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
-            ctypes.POINTER(ctypes.c_int32)]
-        lib.gbtpu_clos_lanes.argtypes = [
-            ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
-            ctypes.POINTER(ctypes.c_int64), ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_int64, ctypes.c_int64,
-            ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int64),
-            ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
-            ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int8)]
-        lib.gbtpu_cycle_2color.argtypes = [
-            ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
-            ctypes.POINTER(ctypes.c_int8), ctypes.c_int64]
-        lib.gbtpu_rank_by_key.argtypes = [
-            ctypes.POINTER(ctypes.c_int64), ctypes.c_int64, ctypes.c_int64,
-            ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int64)]
-        lib.gbtpu_sort_by_key_i32.argtypes = [
-            ctypes.POINTER(ctypes.c_int32), ctypes.c_int64, ctypes.c_int64,
-            ctypes.POINTER(ctypes.c_int64)]
-        lib.gbtpu_clos_route_tiles.restype = ctypes.c_int
-        lib.gbtpu_clos_route_tiles.argtypes = [
-            ctypes.POINTER(ctypes.c_int32), ctypes.c_int64, ctypes.c_int64,
-            ctypes.POINTER(ctypes.c_int8), ctypes.POINTER(ctypes.c_int32),
-            ctypes.POINTER(ctypes.c_int8)]
-        if hasattr(lib, "gbtpu_monotone_pack"):
-            lib.gbtpu_monotone_pack.restype = ctypes.c_int
-            lib.gbtpu_monotone_pack.argtypes = [
-                ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
-                ctypes.c_int64, ctypes.c_int64,
-                ctypes.POINTER(ctypes.c_int8),
-                ctypes.POINTER(ctypes.c_int32),
-                ctypes.POINTER(ctypes.c_int32),
-                ctypes.POINTER(ctypes.c_int8)]
         lib.gbtpu_mtx_read.restype = ctypes.c_int
         lib.gbtpu_mtx_read.argtypes = [
             ctypes.c_char_p, ctypes.POINTER(ctypes.c_int32),
             ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_double),
             ctypes.c_int64, ctypes.c_int]
-        if hasattr(lib, "gbtpu_gp_counts"):
-            lib.gbtpu_gp_counts.argtypes = [
-                ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
-                ctypes.c_int64, ctypes.c_int64,
-                ctypes.POINTER(ctypes.c_int64)]
-            lib.gbtpu_gp_scatter.argtypes = [
-                ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
-                ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-                ctypes.c_int64, ctypes.c_int32,
-                ctypes.POINTER(ctypes.c_int32),
-                ctypes.POINTER(ctypes.c_int64)]
-        if hasattr(lib, "gbtpu_gather_pack"):
-            lib.gbtpu_gather_pack.argtypes = [
-                ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
-                ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-                ctypes.POINTER(ctypes.c_int64),
-                ctypes.POINTER(ctypes.c_int64),
-                ctypes.POINTER(ctypes.c_int64)]
-            lib.gbtpu_colcount.argtypes = [
-                ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
-                ctypes.c_int64, ctypes.POINTER(ctypes.c_int64)]
-            lib.gbtpu_fill_counts.argtypes = [
-                ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
-                ctypes.c_int64, ctypes.c_int64,
-                ctypes.POINTER(ctypes.c_int64),
-                ctypes.POINTER(ctypes.c_int64),
-                ctypes.POINTER(ctypes.c_uint8)]
-            lib.gbtpu_free_src_counts.argtypes = [
-                ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
-                ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-                ctypes.POINTER(ctypes.c_int64)]
-            lib.gbtpu_fill_assign.restype = ctypes.c_int
-            lib.gbtpu_fill_assign.argtypes = [
-                ctypes.POINTER(ctypes.c_int64),
-                ctypes.POINTER(ctypes.c_uint8),
-                ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
-                ctypes.c_int64, ctypes.c_int64]
-            lib.gbtpu_route_perm.argtypes = [
-                ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
-                ctypes.c_int64, ctypes.c_int64,
-                ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
-                ctypes.POINTER(ctypes.c_int64),
-                ctypes.POINTER(ctypes.c_int64),
-                ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
-                ctypes.c_int64, ctypes.POINTER(ctypes.c_int64),
-                ctypes.POINTER(ctypes.c_int64)]
-        if hasattr(lib, "gbtpu_spgemm_layout"):
-            lib.gbtpu_spgemm_layout.restype = ctypes.c_int64
-            lib.gbtpu_spgemm_layout.argtypes = [
-                ctypes.POINTER(ctypes.c_int64),
-                ctypes.POINTER(ctypes.c_int64),
-                ctypes.POINTER(ctypes.c_uint8),
-                ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-                ctypes.c_int64, ctypes.c_int64,
-                ctypes.POINTER(ctypes.c_int64),
-                ctypes.POINTER(ctypes.c_int32),
-                ctypes.POINTER(ctypes.c_int64),
-                ctypes.POINTER(ctypes.c_int64),
-                ctypes.POINTER(ctypes.c_int64),
-                ctypes.POINTER(ctypes.c_int64),
-                ctypes.c_int64]
-        if hasattr(lib, "gbtpu_gather_finalize"):
-            lib.gbtpu_gather_finalize.argtypes = [
-                ctypes.POINTER(ctypes.c_int64),
-                ctypes.POINTER(ctypes.c_int32),
-                ctypes.POINTER(ctypes.c_int64),
-                ctypes.POINTER(ctypes.c_float),
-                ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
-                ctypes.c_int64, ctypes.c_int64,
-                ctypes.POINTER(ctypes.c_int8),
-                ctypes.POINTER(ctypes.c_float),
-                ctypes.POINTER(ctypes.c_int64)]
-        if hasattr(lib, "gbtpu_compose_gather"):
-            lib.gbtpu_compose_gather.argtypes = [
-                ctypes.POINTER(ctypes.c_int8),
-                ctypes.POINTER(ctypes.c_float),
-                ctypes.POINTER(ctypes.c_float),
-                ctypes.POINTER(ctypes.c_int8),
-                ctypes.c_int64, ctypes.c_int64, ctypes.c_int64]
-            lib.gbtpu_compose_ii2.argtypes = [
-                ctypes.POINTER(ctypes.c_int8),
-                ctypes.POINTER(ctypes.c_int8),
-                ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-                ctypes.c_int64]
         _lib = lib
     except Exception:
         _lib = None
@@ -294,416 +174,3 @@ def read_mtx(path: str):
         cols = np.concatenate([cols, rows[:n][off]])
         vals = np.concatenate([vals, sign * vals[off]])
     return rows, cols, vals, (nr.value, nc.value)
-
-
-def cycle_2color(pair_a: np.ndarray, pair_b: np.ndarray) -> np.ndarray:
-    """Native 2-coloring of union-of-involutions cycles (static_route
-    plan-time routing).  Returns int8 colors; None if the native lib is
-    unavailable (caller falls back to numpy pointer doubling)."""
-    lib = _load()
-    if lib is None:
-        return None
-    pa = np.ascontiguousarray(pair_a, np.int64)
-    pb = np.ascontiguousarray(pair_b, np.int64)
-    out = np.empty(pa.shape[0], np.int8)
-    lib.gbtpu_cycle_2color(_ptr(pa, ctypes.c_int64),
-                           _ptr(pb, ctypes.c_int64),
-                           _ptr(out, ctypes.c_int8), pa.shape[0])
-    return out
-
-def benes_route_bits(perm: np.ndarray) -> np.ndarray:
-    """Native Benes routing: perm (B, M) -> packed stage-mask bits (B, M)
-    int32.  None if the native lib is unavailable."""
-    lib = _load()
-    if lib is None:
-        return None
-    if not hasattr(lib, "gbtpu_benes_route"):
-        return None
-    B, M = perm.shape
-    cur = np.ascontiguousarray(perm, np.int32).copy()
-    bits = np.empty((B, M), np.int32)
-    inv = np.empty(B * M, np.int32)
-    tmp = np.empty(B * M, np.int32)
-    lib.gbtpu_benes_route(_ptr(cur, ctypes.c_int32), B, M,
-                          _ptr(bits, ctypes.c_int32),
-                          _ptr(inv, ctypes.c_int32),
-                          _ptr(tmp, ctypes.c_int32))
-    return bits
-
-
-def rank_by_key(keys: np.ndarray, nkeys: int):
-    """Stable rank of each element within its key group + counts per key.
-    Returns (rank int32, counts int64); falls back to numpy argsort when
-    the native library is unavailable."""
-    keys = np.ascontiguousarray(keys, np.int64)
-    n = keys.shape[0]
-    lib = _load()
-    if lib is None or not hasattr(lib, "gbtpu_rank_by_key"):
-        counts = np.bincount(keys, minlength=nkeys).astype(np.int64)
-        order = np.argsort(keys, kind="stable")
-        starts = np.zeros(nkeys + 1, np.int64)
-        np.cumsum(counts, out=starts[1:])
-        rank = np.empty(n, np.int32)
-        rank[order] = (np.arange(n) - starts[keys[order]]).astype(np.int32)
-        return rank, counts
-    rank = np.empty(n, np.int32)
-    counts = np.empty(nkeys, np.int64)
-    lib.gbtpu_rank_by_key(_ptr(keys, ctypes.c_int64), n, nkeys,
-                          _ptr(rank, ctypes.c_int32),
-                          _ptr(counts, ctypes.c_int64))
-    return rank, counts
-
-
-def sort_by_key_i32(keys: np.ndarray, nkeys: int) -> np.ndarray:
-    """Stable counting argsort for bounded non-negative int32 keys."""
-    keys = np.ascontiguousarray(keys, np.int32)
-    lib = _load()
-    if lib is None or not hasattr(lib, "gbtpu_sort_by_key_i32"):
-        return np.argsort(keys, kind="stable")
-    order = np.empty(keys.shape[0], np.int64)
-    lib.gbtpu_sort_by_key_i32(_ptr(keys, ctypes.c_int32), keys.shape[0],
-                              nkeys, _ptr(order, ctypes.c_int64))
-    return order
-
-
-def gp_counts(src: np.ndarray, T: int, tile_elems: int):
-    """Per-(s_tile, d_tile) bucket counts for the 2-phase global permute.
-    None when the native library is unavailable."""
-    lib = _load()
-    if lib is None or not hasattr(lib, "gbtpu_gp_counts"):
-        return None
-    src = np.ascontiguousarray(src, np.int64)
-    counts = np.empty(T * T, np.int64)
-    lib.gbtpu_gp_counts(_ptr(src, ctypes.c_int64), src.shape[0], T,
-                        tile_elems, _ptr(counts, ctypes.c_int64))
-    return counts
-
-
-def gp_scatter(src: np.ndarray, T: int, tile_elems: int, rows_pp: int,
-               M1: int, phase: int):
-    """Build one phase's partial permutation (-1 = free destination) in a
-    single native sweep (replaces ~8 npad-sized numpy intermediates).
-    None when the native library is unavailable."""
-    lib = _load()
-    if lib is None or not hasattr(lib, "gbtpu_gp_scatter"):
-        return None
-    src = np.ascontiguousarray(src, np.int64)
-    perm = np.empty(T * M1, np.int32)
-    seen = np.empty(T * T, np.int64)
-    lib.gbtpu_gp_scatter(_ptr(src, ctypes.c_int64), src.shape[0], T,
-                         tile_elems, rows_pp, M1, phase,
-                         _ptr(perm, ctypes.c_int32),
-                         _ptr(seen, ctypes.c_int64))
-    return perm
-
-
-def gather_pack(ci: np.ndarray, n: int, win: int, W: int):
-    """GatherPlan entry sweep: per-entry class key + lane id and per-class
-    counts in one native pass.  None when unavailable."""
-    lib = _load()
-    if lib is None or not hasattr(lib, "gbtpu_gather_pack"):
-        return None
-    ci = np.ascontiguousarray(ci, np.int64)
-    nnz = ci.shape[0]
-    key = np.empty(nnz, np.int64)
-    hi = np.empty(nnz, np.int64)
-    cls_cnt = np.empty(W * 128, np.int64)
-    lib.gbtpu_gather_pack(_ptr(ci, ctypes.c_int64), nnz, n, win, W,
-                          _ptr(key, ctypes.c_int64),
-                          _ptr(hi, ctypes.c_int64),
-                          _ptr(cls_cnt, ctypes.c_int64))
-    return key, hi, cls_cnt
-
-
-def colcount(ci: np.ndarray, n: int) -> np.ndarray:
-    lib = _load()
-    if lib is None or not hasattr(lib, "gbtpu_colcount"):
-        return np.bincount(ci, minlength=n).astype(np.int64)
-    ci = np.ascontiguousarray(ci, np.int64)
-    colcnt = np.empty(n, np.int64)
-    lib.gbtpu_colcount(_ptr(ci, ctypes.c_int64), ci.shape[0], n,
-                       _ptr(colcnt, ctypes.c_int64))
-    return colcnt
-
-
-def fill_counts(perm: np.ndarray, slots: int, T: int):
-    """Per-(s,d)-tile real bucket counts, per-tile free-destination counts
-    and the used-source bitmap, one native pass.  None when unavailable."""
-    lib = _load()
-    if lib is None or not hasattr(lib, "gbtpu_fill_counts"):
-        return None
-    assert perm.dtype == np.int64 and perm.flags.c_contiguous
-    N = perm.shape[0]
-    real = np.empty((T, T), np.int64)
-    D = np.empty(T, np.int64)
-    used = np.empty(N, np.uint8)
-    lib.gbtpu_fill_counts(_ptr(perm, ctypes.c_int64), N, slots, T,
-                          _ptr(real, ctypes.c_int64),
-                          _ptr(D, ctypes.c_int64),
-                          _ptr(used, ctypes.c_uint8))
-    return real, D, used
-
-
-def free_src_counts(used: np.ndarray, K: int, slots: int, T: int):
-    lib = _load()
-    S = np.empty(T, np.int64)
-    lib.gbtpu_free_src_counts(_ptr(used, ctypes.c_uint8), used.shape[0],
-                              K, slots, T, _ptr(S, ctypes.c_int64))
-    return S
-
-
-def fill_assign(perm: np.ndarray, used: np.ndarray, fill: np.ndarray,
-                slots: int, T: int) -> bool:
-    lib = _load()
-    fill = np.ascontiguousarray(fill, np.int64)
-    rc = lib.gbtpu_fill_assign(_ptr(perm, ctypes.c_int64),
-                               _ptr(used, ctypes.c_uint8),
-                               _ptr(fill, ctypes.c_int64),
-                               perm.shape[0], slots, T)
-    return rc == 0
-
-
-def route_perm(counts_pad: np.ndarray, YT: int, slots: int,
-               ip: np.ndarray, m0: int, row_of, within_of,
-               pos: np.ndarray, Ndst: int):
-    """Destination layout + partial permutation in one native sweep.
-    Returns (perm int64 (Ndst,), sent int64 (mpad,)) or None."""
-    lib = _load()
-    if lib is None or not hasattr(lib, "gbtpu_route_perm"):
-        return None
-    counts_pad = np.ascontiguousarray(counts_pad, np.int64)
-    pos = np.ascontiguousarray(pos, np.int64)
-    mpad = counts_pad.shape[0]
-    perm = np.empty(Ndst, np.int64)
-    sent = np.empty(mpad, np.int64)
-    null = ctypes.POINTER(ctypes.c_int64)()
-    if row_of is not None:
-        row_of = np.ascontiguousarray(row_of, np.int64)
-        within_of = np.ascontiguousarray(within_of, np.int64)
-        rp, wp = _ptr(row_of, ctypes.c_int64), _ptr(within_of,
-                                                    ctypes.c_int64)
-        ipp = null
-    else:
-        rp, wp = null, null
-        ip = np.ascontiguousarray(ip, np.int64)
-        ipp = _ptr(ip, ctypes.c_int64)
-    lib.gbtpu_route_perm(_ptr(counts_pad, ctypes.c_int64), mpad, YT,
-                         slots, ipp, m0, rp, wp,
-                         _ptr(pos, ctypes.c_int64), pos.shape[0], Ndst,
-                         _ptr(perm, ctypes.c_int64),
-                         _ptr(sent, ctypes.c_int64))
-    return perm, sent
-
-
-def gather_finalize(key, slot, counts, vv, hi, W: int, RBL: int):
-    """GatherPlan.finalize in one native sweep.  Returns
-    (hi_arr int8 (W*RBL, 128), val_arr f32 (W*RBL, 128), pos int64 (nnz,))
-    or None when the native library is unavailable."""
-    lib = _load()
-    if lib is None or not hasattr(lib, "gbtpu_gather_finalize"):
-        return None
-    key = np.ascontiguousarray(key, np.int64)
-    slot = np.ascontiguousarray(slot, np.int32)
-    counts = np.ascontiguousarray(counts, np.int64)
-    vv = np.ascontiguousarray(vv, np.float32)
-    hi = np.ascontiguousarray(hi, np.int64)
-    nnz = key.shape[0]
-    hi_arr = np.empty((W * RBL, 128), np.int8)
-    val_arr = np.empty((W * RBL, 128), np.float32)
-    pos = np.empty(nnz, np.int64)
-    lib.gbtpu_gather_finalize(
-        _ptr(key, ctypes.c_int64), _ptr(slot, ctypes.c_int32),
-        _ptr(counts, ctypes.c_int64), _ptr(vv, ctypes.c_float),
-        _ptr(hi, ctypes.c_int64), nnz, W, RBL,
-        _ptr(hi_arr, ctypes.c_int8), _ptr(val_arr, ctypes.c_float),
-        _ptr(pos, ctypes.c_int64))
-    return hi_arr, val_arr, pos
-
-
-def compose_gather(hi: np.ndarray, val: np.ndarray, val_lo,
-                   ii1: np.ndarray, TR: int, R1: int) -> bool:
-    """In-place hi/val[/val_lo] <- lane-gather by ii1 (row-mapped);
-    returns False when the native library is unavailable."""
-    lib = _load()
-    if lib is None or not hasattr(lib, "gbtpu_compose_gather"):
-        return False
-    G = hi.shape[0]
-    lib.gbtpu_compose_gather(
-        _ptr(hi, ctypes.c_int8), _ptr(val, ctypes.c_float),
-        _ptr(val_lo, ctypes.c_float) if val_lo is not None else None,
-        _ptr(np.ascontiguousarray(ii1, np.int8), ctypes.c_int8),
-        G, TR, R1)
-    return True
-
-
-def compose_ii2(ii2: np.ndarray, io1: np.ndarray, T: int, rows_pp: int,
-                R1: int, R2: int) -> bool:
-    """In-place ii2 <- io1[midrow][ii2]; False without the library."""
-    lib = _load()
-    if lib is None or not hasattr(lib, "gbtpu_compose_ii2"):
-        return False
-    lib.gbtpu_compose_ii2(
-        _ptr(ii2, ctypes.c_int8),
-        _ptr(np.ascontiguousarray(io1, np.int8), ctypes.c_int8),
-        T, rows_pp, R1, R2)
-    return True
-
-
-def monotone_pack(marked: np.ndarray, R: int):
-    """Native monotone-concentrator plan: marked (T, K) int64 sorted raster
-    positions.  Returns (lidx int8 (T*R,128), bits int32 (T*R,128)) or None
-    when the native library is unavailable.  Raises ValueError on collision
-    or non-convergence (matching the numpy planner's behavior)."""
-    lib = _load()
-    if lib is None or not hasattr(lib, "gbtpu_monotone_pack"):
-        return None
-    marked = np.ascontiguousarray(marked, np.int64)
-    T, K = marked.shape
-    lidx = np.empty((T * R, 128), np.int8)
-    bits = np.empty((T * R, 128), np.int32)
-    q = np.empty(T * K, np.int32)
-    stamp = np.empty(T * R * 128, np.int8)
-    rc = lib.gbtpu_monotone_pack(
-        _ptr(marked, ctypes.c_int64), T, K, R,
-        _ptr(lidx, ctypes.c_int8), _ptr(bits, ctypes.c_int32),
-        _ptr(q, ctypes.c_int32), _ptr(stamp, ctypes.c_int8))
-    if rc == -1:
-        raise ValueError("monotone_pack_plan: collision")
-    if rc == -2:
-        raise ValueError("monotone_pack_plan: did not converge")
-    if rc != 0:
-        return None
-    return lidx, bits
-
-
-def clos_route_tiles(perm: np.ndarray, R: int):
-    """Native whole-tile Clos routing: perm (T, R*128) int32 with -1 for
-    free destinations (completed internally).  Returns
-    (idx_in int8 (T*R,128), bits int32 (T*R,128), idx_out int8 (T*R,128))
-    or None when the native library is unavailable (caller falls back to
-    the numpy pipeline).  NOTE: perm is modified in place (completed)."""
-    lib = _load()
-    if lib is None or not hasattr(lib, "gbtpu_clos_route_tiles"):
-        return None
-    T, N = perm.shape
-    assert N == R * 128 and perm.dtype == np.int32
-    assert perm.flags.c_contiguous
-    idx_in = np.empty((T * R, 128), np.int8)
-    bits = np.empty((T * R, 128), np.int32)
-    idx_out = np.empty((T * R, 128), np.int8)
-    rc = lib.gbtpu_clos_route_tiles(
-        _ptr(perm, ctypes.c_int32), T, R, _ptr(idx_in, ctypes.c_int8),
-        _ptr(bits, ctypes.c_int32), _ptr(idx_out, ctypes.c_int8))
-    if rc != 0:
-        return None
-    return idx_in, bits, idx_out
-
-
-def clos_lanes(src_row, dst_row, tile, R: int, L: int, T: int):
-    """Native Clos lane assignment.  None if unavailable."""
-    lib = _load()
-    if lib is None or not hasattr(lib, "gbtpu_clos_lanes"):
-        return None
-    E = src_row.shape[0]
-    sr = np.ascontiguousarray(src_row, np.int64)
-    dr = np.ascontiguousarray(dst_row, np.int64)
-    tl = np.ascontiguousarray(tile, np.int64)
-    lane = np.empty(E, np.int32)
-    mateA = np.empty(E, np.int64)
-    mateB = np.empty(E, np.int64)
-    order = np.empty(E, np.int64)
-    cnt = np.empty(E + 2, np.int64)
-    color = np.empty(E, np.int8)
-    lib.gbtpu_clos_lanes(_ptr(sr, ctypes.c_int64), _ptr(dr, ctypes.c_int64),
-                         _ptr(tl, ctypes.c_int64), E, R, L, T,
-                         _ptr(lane, ctypes.c_int32),
-                         _ptr(mateA, ctypes.c_int64),
-                         _ptr(mateB, ctypes.c_int64),
-                         _ptr(order, ctypes.c_int64),
-                         _ptr(cnt, ctypes.c_int64),
-                         _ptr(color, ctypes.c_int8))
-    return lane
-
-
-def spgemm_layout(row_nseg, row_nent, row_tok, tile_segs: int,
-                  blk_segs: int, blk_ents: int, blk_rows: int):
-    """SELL SpGEMM layout sweep (see native gbtpu_spgemm_layout): padded
-    per-row segment starts (never straddling a sort tile), per-row tile
-    ranks, and block boundary arrays under segment/entry/row/token
-    budgets.  Pure-python fallback when the native library is absent.
-
-    Returns (row_startseg (m+1,) int64, tile_rank (m,) int32,
-    blk_r0, blk_e0, blk_t0, blk_seg0  — each (nblocks,) int64).
-    """
-    m = row_nseg.shape[0]
-    rn = np.ascontiguousarray(row_nseg, np.int64)
-    re_ = np.ascontiguousarray(row_nent, np.int64)
-    rt = None if row_tok is None else np.ascontiguousarray(row_tok, np.uint8)
-    lib = _load()
-    if lib is not None and hasattr(lib, "gbtpu_spgemm_layout"):
-        starts = np.empty(m + 1, np.int64)
-        rank = np.empty(m, np.int32)
-        maxb = max(16, 2 * (int(rn.sum()) // max(blk_segs, 1) + 2)
-                   + m // max(blk_rows, 1) + 4)
-        br0 = np.empty(maxb, np.int64)
-        be0 = np.empty(maxb, np.int64)
-        bt0 = np.empty(maxb, np.int64)
-        bs0 = np.empty(maxb, np.int64)
-        nb = lib.gbtpu_spgemm_layout(
-            _ptr(rn, ctypes.c_int64), _ptr(re_, ctypes.c_int64),
-            None if rt is None else _ptr(rt, ctypes.c_uint8),
-            m, tile_segs, blk_segs, blk_ents, blk_rows,
-            _ptr(starts, ctypes.c_int64), _ptr(rank, ctypes.c_int32),
-            _ptr(br0, ctypes.c_int64), _ptr(be0, ctypes.c_int64),
-            _ptr(bt0, ctypes.c_int64), _ptr(bs0, ctypes.c_int64), maxb)
-        if nb > 0:
-            return (starts, rank, br0[:nb].copy(), be0[:nb].copy(),
-                    bt0[:nb].copy(), bs0[:nb].copy())
-    # pure-python sweep (identical semantics; test/CI scale)
-    starts = np.empty(m + 1, np.int64)
-    rank = np.zeros(m, np.int32)
-    br0, be0, bt0, bs0 = [], [], [], []
-    cursor = ecur = tcur = 0
-    tile0 = 0
-    rk = 0
-    for r in range(m):
-        s = int(rn[r])
-        ne = int(re_[r])
-        nt = int(rt[r]) if rt is not None else 0
-        if s > 0:
-            if cursor - tile0 + s > tile_segs:
-                tile0 += tile_segs
-                cursor = tile0
-                rk = 0
-            need = (not br0 or (cursor + s) - bs0[-1] > blk_segs
-                    or (ecur + ne) - be0[-1] > blk_ents
-                    or (r + 1) - br0[-1] > blk_rows
-                    or (tcur + nt) - bt0[-1] > blk_rows)
-            if need:
-                cursor = ((cursor + blk_segs - 1) // blk_segs) * blk_segs
-                if br0 and cursor == bs0[-1]:
-                    cursor += blk_segs
-                if not br0:
-                    cursor = 0
-                tile0 = cursor
-                rk = 0
-                br0.append(r)
-                be0.append(ecur)
-                bt0.append(tcur)
-                bs0.append(cursor)
-            starts[r] = cursor
-            rank[r] = rk
-            cursor += s
-            rk += 1
-        else:
-            starts[r] = cursor
-        ecur += ne
-        tcur += nt
-    starts[m] = ((cursor + blk_segs - 1) // blk_segs) * blk_segs
-    if not br0:
-        br0, be0, bt0, bs0 = [0], [0], [0], [0]
-        if starts[m] == 0:
-            starts[m] = blk_segs
-    return (starts, rank, np.asarray(br0, np.int64),
-            np.asarray(be0, np.int64), np.asarray(bt0, np.int64),
-            np.asarray(bs0, np.int64))

@@ -2,7 +2,7 @@
 //
 // The reference ships native code for exactly these jobs: a parallel sort
 // at the heart of its builder (Source/GB_msort_*.c), compression codecs for
-// serialize (vendored lz4/zstd), and fast IO.  These are their TPU-era
+// serialize (vendored lz4/zstd), and fast IO.  These are this package's
 // equivalents, designed fresh:
 //   * LSD radix sort on packed 64-bit (row,col) keys with permutation
 //     output — the builder's sort step, O(n) not O(n log n), OpenMP-chunked
@@ -14,33 +14,15 @@
 //   * Matrix Market (.mtx) reader: two-pass mmap parser filling
 //     caller-provided numpy buffers; the benchmark data loader.
 //
-// Exposed via plain C ABI for ctypes (no pybind11 in this image).
+// Exposed via plain C ABI for ctypes (no pybind11 dependency).
 
 #include <algorithm>
 #include <cctype>
-#include <chrono>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
-#include <vector>
 #include <cstring>
 #include <vector>
-
-// Env-gated phase timing (GBTPU_TIMING=1): prints per-phase seconds for the
-// plan-build hot paths so regressions are visible without a profiler.
-static inline double gbtpu_now() {
-  return std::chrono::duration<double>(
-             std::chrono::steady_clock::now().time_since_epoch())
-      .count();
-}
-static inline bool gbtpu_timing() {
-  static int v = -1;
-  if (v < 0) {
-    const char* e = std::getenv("GBTPU_TIMING");
-    v = (e && e[0] == '1') ? 1 : 0;
-  }
-  return v == 1;
-}
 
 #ifdef _OPENMP
 #include <omp.h>
@@ -227,813 +209,6 @@ int gbtpu_mtx_read(const char* path, int32_t* rows, int32_t* cols,
   }
   std::fclose(f);
   return 0;
-}
-
-// 2-color the cycles of the union of two involutions (pair_a, pair_b):
-// paired elements get opposite colors.  Sequential O(n) cycle walk — the
-// plan-time routing primitive of the static permutation engine
-// (graphblas_tpu/kernels/static_route.py); a vectorized numpy
-// pointer-doubling version exists but is ~100x slower on long cycles.
-void gbtpu_cycle_2color(const int64_t* pa, const int64_t* pb, int8_t* color,
-                        int64_t n) {
-  for (int64_t i = 0; i < n; ++i) color[i] = -1;
-  for (int64_t start = 0; start < n; ++start) {
-    if (color[start] >= 0) continue;
-    int64_t p = start;
-    int8_t c = 0;
-    // walk: alternate pair_a / pair_b edges, flipping color on each edge
-    while (color[p] < 0) {
-      color[p] = c;
-      int64_t q = pa[p];
-      if (color[q] < 0) color[q] = (int8_t)(1 - c);
-      p = pb[q];
-      // p is pb-partner of q: opposite of q -> same as original c
-    }
-  }
-}
-
-// --- static-routing planners (graphblas_tpu/kernels/static_route.py) ---
-
-// Route a batch of permutations onto Benes networks.  perm: B rows of M
-// (out = x[perm] per row), M a power of two.  bits_out (B*M int32):
-// bit s of element (b, i) = swap mask of stage s (stages ordered
-// M/2, M/4, ..., 2, 1, 2, ..., M/2).  Scratch arrays are caller-provided
-// (each B*M int32): cur holds the evolving child permutations.
-void gbtpu_benes_route(int32_t* cur, int64_t B, int64_t M,
-                       int32_t* bits_out, int32_t* inv, int32_t* tmp) {
-  const int64_t total = B * M;
-  for (int64_t i = 0; i < total; ++i) bits_out[i] = 0;
-  int64_t nsub = B;          // subproblems (each contiguous, size `size`)
-  int64_t size = M;
-  int stage_front = 0;
-  int log2M = 0;
-  while ((1LL << log2M) < M) ++log2M;
-  int nstages = 2 * log2M - 1;
-  while (size > 2) {
-    const int64_t h = size / 2;
-    const int sb_front = stage_front;
-    const int sb_back = nstages - 1 - stage_front;
-    for (int64_t sidx = 0; sidx < nsub; ++sidx) {
-      int32_t* src = cur + sidx * size;
-      int32_t* vin = inv + sidx * size;
-      // inverse
-      for (int64_t i = 0; i < size; ++i) vin[src[i]] = (int32_t)i;
-      // 2-color: IN pairs (i, i^h), OUT pairs (i, src[vin[i]^h]).
-      // walk cycles with a small color array in tmp.
-      int8_t* color = (int8_t*)(tmp + sidx * size);
-      for (int64_t i = 0; i < size; ++i) color[i] = -1;
-      for (int64_t st = 0; st < size; ++st) {
-        if (color[st] >= 0) continue;
-        int64_t p = st;
-        while (color[p] < 0) {
-          color[p] = 0;
-          int64_t q = src[vin[p] ^ h];     // OUT partner: opposite
-          if (color[q] < 0) color[q] = 1;
-          p = q ^ h;                       // IN partner of q: same as p
-        }
-      }
-      // which global elements does this subproblem cover?
-      // position of local i in the ORIGINAL M-array: the recursion keeps
-      // contiguous blocks per (b, path), and masks concat in block order,
-      // matching the numpy implementation's reshape(B, M).
-      const int64_t gbase = sidx * size;
-      // stage masks
-      for (int64_t i = 0; i < h; ++i) {
-        int swap_in = (color[i] == 1);
-        if (swap_in) {
-          bits_out[gbase + i] |= (1 << sb_front);
-          bits_out[gbase + i + h] |= (1 << sb_front);
-        }
-        int swap_out = (color[src[i]] == 1);
-        if (swap_out) {
-          bits_out[gbase + i] |= (1 << sb_back);
-          bits_out[gbase + i + h] |= (1 << sb_back);
-        }
-      }
-      // child permutations into tmp (reuse as staging after colors read)
-      // up child at [0, h), lo child at [h, size)
-      int32_t* stage_buf = vin;  // reuse inv as staging for children
-      for (int64_t j = 0; j < h; ++j) {
-        int32_t s_lo = src[j], s_hi = src[j + h];
-        int swap_out = (color[s_lo] == 1);
-        int32_t up = swap_out ? s_hi : s_lo;
-        int32_t lo = swap_out ? s_lo : s_hi;
-        stage_buf[j] = up % h;
-        stage_buf[j + h] = lo % h;
-      }
-      for (int64_t j = 0; j < size; ++j) src[j] = stage_buf[j];
-    }
-    nsub *= 2;
-    size = h;
-    stage_front += 1;
-  }
-  // center stage (size == 2)
-  const int center = stage_front;
-  for (int64_t sidx = 0; sidx < nsub; ++sidx) {
-    int32_t* src = cur + sidx * 2;
-    if (src[0] == 1) {
-      bits_out[sidx * 2] |= (1 << center);
-      bits_out[sidx * 2 + 1] |= (1 << center);
-    }
-  }
-}
-
-// Clos lane assignment: recursively Euler-split the (src_row, dst_row)
-// L-regular bipartite multigraphs (T independent tiles of R rows each)
-// into single matchings.  lane_out[e] in [0, L).  Scratch: mateA/mateB/
-// order (E int64), color (E int8).
-void gbtpu_clos_lanes(const int64_t* src_row, const int64_t* dst_row,
-                      const int64_t* tile, int64_t E, int64_t R, int64_t L,
-                      int64_t T, int32_t* lane_out,
-                      int64_t* mateA, int64_t* mateB, int64_t* order,
-                      int64_t* cnt, int8_t* color) {
-  for (int64_t e = 0; e < E; ++e) lane_out[e] = 0;
-  // group code per edge grows with the recursion; fold into the key
-  std::vector<int32_t> group(E, 0);
-  int64_t width = L;
-  const int64_t nkey_base = T * R;
-  while (width > 1) {
-    const int64_t ngroups = L / width;   // groups processed this level
-    const int64_t nkeys = ngroups * nkey_base;
-    // counting sort by (group, tile, row) for both endpoints -> mates
-    for (int side = 0; side < 2; ++side) {
-      const int64_t* rows = side ? dst_row : src_row;
-      int64_t* mate = side ? mateB : mateA;
-      for (int64_t k = 0; k <= nkeys; ++k) cnt[k] = 0;
-      for (int64_t e = 0; e < E; ++e) {
-        int64_t key = ((int64_t)group[e] * T + tile[e]) * R + rows[e];
-        cnt[key + 1]++;
-      }
-      for (int64_t k = 0; k < nkeys; ++k) cnt[k + 1] += cnt[k];
-      for (int64_t e = 0; e < E; ++e) {
-        int64_t key = ((int64_t)group[e] * T + tile[e]) * R + rows[e];
-        order[cnt[key]++] = e;
-      }
-      for (int64_t i = 0; i < E; i += 2) {
-        mate[order[i]] = order[i + 1];
-        mate[order[i + 1]] = order[i];
-      }
-    }
-    // cycle 2-color over the union of the two matchings
-    for (int64_t e = 0; e < E; ++e) color[e] = -1;
-    for (int64_t st = 0; st < E; ++st) {
-      if (color[st] >= 0) continue;
-      int64_t p = st;
-      while (color[p] < 0) {
-        color[p] = 0;
-        int64_t q = mateA[p];
-        if (color[q] < 0) color[q] = 1;
-        p = mateB[q];
-      }
-    }
-    const int64_t half = width / 2;
-    for (int64_t e = 0; e < E; ++e) {
-      if (color[e]) {
-        lane_out[e] += (int32_t)half;
-        group[e] = group[e] * 2 + 1;
-      } else {
-        group[e] = group[e] * 2;
-      }
-    }
-    width = half;
-  }
-}
-
-// Stable rank of each element within its key group, plus per-key counts.
-// Replaces argsort-based ranking for bounded integer keys: O(n + nkeys).
-void gbtpu_rank_by_key(const int64_t* keys, int64_t n, int64_t nkeys,
-                       int32_t* rank, int64_t* counts) {
-  for (int64_t k = 0; k < nkeys; ++k) counts[k] = 0;
-  for (int64_t i = 0; i < n; ++i) counts[keys[i]]++;
-  std::vector<int64_t> seen(nkeys, 0);
-  for (int64_t i = 0; i < n; ++i) rank[i] = (int32_t)(seen[keys[i]]++);
-}
-
-// Like gbtpu_rank_by_key but with int32 keys and a stable order output
-// (order[j] = index of the j-th element in key-sorted order).
-void gbtpu_sort_by_key_i32(const int32_t* keys, int64_t n, int64_t nkeys,
-                           int64_t* order) {
-  std::vector<int64_t> cnt(nkeys + 1, 0);
-  for (int64_t i = 0; i < n; ++i) cnt[keys[i] + 1]++;
-  for (int64_t k = 0; k < nkeys; ++k) cnt[k + 1] += cnt[k];
-  for (int64_t i = 0; i < n; ++i) order[cnt[keys[i]]++] = i;
-}
-
-// ---------------------------------------------------------------------------
-// clos_route_tiles: the whole per-tile Clos route in one cache-local pass
-// ---------------------------------------------------------------------------
-//
-// Routes T independent (R, 128)-tile permutations (out.flat = x.flat[perm]
-// per tile) onto 3-stage Clos networks, producing the on-chip executor's
-// plan arrays directly:
-//   idx_in  (T*R, 128) int8  — stage-1 per-row lane gather indices
-//   bits    (T*R, 128) int32 — stage-2 packed sublane-Benes masks
-//   idx_out (T*R, 128) int8  — stage-3 per-row lane gather indices
-// perm entries may be -1 (unassigned destination); each tile is completed
-// to a full permutation by pairing free destinations with unused sources
-// in order.  R must be a power of two (Benes), R <= 32768.
-//
-// This replaces the former pipeline (global numpy scatters + single
-// flat-keyed native passes) whose working set thrashed cache; here every
-// level's counting sorts, cycle walks and scatters touch only one tile's
-// ~6 MB of scratch.
-// Benes-route L independent columns of M = R sublanes each (int16 domain,
-// cache-tight): cur (L, R) int16 permutations, bits_out (L, R) int32.
-static void benes_columns_i16(int16_t* cur, int64_t L, int64_t R,
-                              int32_t* bits_out, int16_t* inv,
-                              int16_t* child, int8_t* color) {
-  int log2R = 0;
-  while ((1LL << log2R) < R) ++log2R;
-  const int nstages = 2 * log2R - 1;
-  std::memset(bits_out, 0, (size_t)L * R * 4);
-  for (int64_t c = 0; c < L; ++c) {
-    int16_t* base = cur + c * R;
-    int32_t* bcol = bits_out + c * R;
-    int64_t nsub = 1, size = R;
-    int sf = 0;
-    while (size > 2) {
-      const int64_t h = size / 2;
-      const int sb = nstages - 1 - sf;
-      for (int64_t s = 0; s < nsub; ++s) {
-        int16_t* src = base + s * size;
-        const int64_t gb = s * size;
-        for (int64_t i = 0; i < size; ++i) inv[src[i]] = (int16_t)i;
-        std::memset(color, -1, size);
-        for (int64_t st = 0; st < size; ++st) {
-          if (color[st] >= 0) continue;
-          int64_t p0 = st;
-          while (color[p0] < 0) {
-            color[p0] = 0;
-            int64_t q = src[inv[p0] ^ h];
-            if (color[q] < 0) color[q] = 1;
-            p0 = q ^ h;
-          }
-        }
-        for (int64_t i = 0; i < h; ++i) {
-          int32_t b = 0;
-          if (color[i] == 1) b |= (1 << sf);
-          const int16_t s_lo = src[i], s_hi = src[i + h];
-          const int swap_out = (color[s_lo] == 1);
-          if (swap_out) b |= (1 << sb);
-          bcol[gb + i] |= b;
-          bcol[gb + i + h] |= b;
-          child[i] = (int16_t)((swap_out ? s_hi : s_lo) % h);
-          child[i + h] = (int16_t)((swap_out ? s_lo : s_hi) % h);
-        }
-        std::memcpy(src, child, (size_t)size * 2);
-      }
-      nsub *= 2;
-      size = h;
-      ++sf;
-    }
-    for (int64_t s = 0; s < nsub; ++s)
-      if (base[s * 2] == 1) {
-        bcol[s * 2] |= (1 << sf);
-        bcol[s * 2 + 1] |= (1 << sf);
-      }
-  }
-}
-
-int gbtpu_clos_route_tiles(int32_t* perm, int64_t T, int64_t R,
-                           int8_t* idx_in, int32_t* bits, int8_t* idx_out) {
-  const int64_t L = 128;
-  const int64_t N = R * L;
-  if (R < 8 || (R & (R - 1)) || R > 32768) return -1;
-
-  // ping-pong edge arrays: p = source position, dst = destination position.
-  // Edges are kept PHYSICALLY partitioned by Euler group, so every level's
-  // sorts, walks and partitions run on halved, increasingly cache-resident
-  // blocks, and the final block index IS the lane assignment.
-  // dst positions are never stored whole: within every block the dst ROW
-  // of local edge e is implicitly e / width (db starts as the identity
-  // and the stable partition keeps even-length, even-aligned runs), so
-  // only the dst LANE byte rides along.
-  std::vector<int32_t> pA(N), pB(N);
-  std::vector<int8_t> dA(N), dB(N);
-  std::vector<int32_t> mateA(N);
-  std::vector<int8_t> color(N);
-  std::vector<int32_t> pend(R), pend_ep(R, 0);
-  int64_t pend_epoch = 0;
-  std::vector<uint8_t> used(N);
-  std::vector<int16_t> cur16(N), inv16(R), child16(R);
-  std::vector<int8_t> col8(R);
-  std::vector<int32_t> bits_loc(N);
-  double t_comp = 0, t_euler = 0, t_emit = 0, t_benes = 0, t_tr = 0;
-
-  for (int64_t t = 0; t < T; ++t) {
-    double tp = gbtpu_timing() ? gbtpu_now() : 0;
-    int32_t* p0 = perm + t * N;
-    // -- complete the partial permutation (free dst <- unused src, in order)
-    std::memset(used.data(), 0, N);
-    for (int64_t e = 0; e < N; ++e)
-      if (p0[e] >= 0) used[p0[e]] = 1;
-    int64_t nxt = 0;
-    for (int64_t e = 0; e < N; ++e) {
-      if (p0[e] < 0) {
-        while (used[nxt]) ++nxt;
-        p0[e] = (int32_t)nxt;
-        used[nxt] = 1;
-      }
-    }
-    std::memcpy(pA.data(), p0, (size_t)N * 4);
-    for (int64_t e = 0; e < N; ++e) dA[e] = (int8_t)(e & 127);
-    if (gbtpu_timing()) { double q = gbtpu_now(); t_comp += q - tp; tp = q; }
-
-    // -- recursive Euler split with physical partitioning
-    int32_t* pc = pA.data();
-    int8_t* dc = dA.data();
-    int32_t* pn = pB.data();
-    int8_t* dn = dB.data();
-    int64_t width = L;          // current block width (edges per block / R)
-    int64_t bsz = N;            // current block size
-    while (width > 1) {
-      const int64_t nblk = N / bsz;
-      for (int64_t b = 0; b < nblk; ++b) {
-        const int64_t off = b * bsz;
-        const int32_t* pb = pc + off;
-        const int8_t* db = dc + off;
-        // pair at equal src rows: consecutive same-row edges in block
-        // order pair up (each row's edge count per block is even), via an
-        // epoch-stamped pending slot — one pass, no counting sort.  The
-        // dst side needs no pairing state at all: db stays ascending
-        // within every block (dA starts as the identity and the partition
-        // below is stable), each dst row's edges form an even-length,
-        // even-aligned run, so the dst mate of edge e is simply e^1.
-        {
-          const int32_t* pos = pb;
-          int32_t* mate = mateA.data();
-          const int32_t ep = (int32_t)(++pend_epoch);
-          for (int64_t e = 0; e < bsz; ++e) {
-            const int32_t r = pos[e] >> 7;
-            if (pend_ep[r] == ep) {
-              const int32_t o = pend[r];
-              mate[o] = (int32_t)e;
-              mate[e] = o;
-              pend_ep[r] = ep - 1;
-            } else {
-              pend[r] = (int32_t)e;
-              pend_ep[r] = ep;
-            }
-          }
-        }
-        // 2-color alternating Euler cycles (dst mate = q^1)
-        std::memset(color.data(), -1, bsz);
-        for (int64_t st = 0; st < bsz; ++st) {
-          if (color[st] >= 0) continue;
-          int64_t q0 = st;
-          while (color[q0] < 0) {
-            color[q0] = 0;
-            int64_t q = mateA[q0];
-            if (color[q] < 0) color[q] = 1;
-            q0 = q ^ 1;
-          }
-        }
-        // stable partition into the two child blocks
-        int64_t lo = off, hi = off + bsz / 2;
-        for (int64_t e = 0; e < bsz; ++e) {
-          if (color[e]) {
-            pn[hi] = pb[e];
-            dn[hi] = db[e];
-            ++hi;
-          } else {
-            pn[lo] = pb[e];
-            dn[lo] = db[e];
-            ++lo;
-          }
-        }
-      }
-      std::swap(pc, pn);
-      std::swap(dc, dn);
-      width /= 2;
-      bsz /= 2;
-    }
-    if (gbtpu_timing()) { double q = gbtpu_now(); t_euler += q - tp; tp = q; }
-    // edges now lane-major: block l (size R) = edges assigned lane l;
-    // dst row of local edge e is e (width == 1)
-    int8_t* ii = idx_in + t * N;
-    int8_t* io = idx_out + t * N;
-    for (int64_t l = 0; l < L; ++l) {
-      const int32_t* pb = pc + l * R;
-      const int8_t* db = dc + l * R;
-      int16_t* cb = cur16.data() + l * R;
-      for (int64_t e = 0; e < R; ++e) {
-        const int32_t sp = pb[e];
-        ii[(int64_t)(sp >> 7 << 7) + l] = (int8_t)(sp & 127);
-        cb[e] = (int16_t)(sp >> 7);
-        io[(e << 7) + db[e]] = (int8_t)l;
-      }
-    }
-    if (gbtpu_timing()) { double q = gbtpu_now(); t_emit += q - tp; tp = q; }
-    benes_columns_i16(cur16.data(), L, R, bits_loc.data(), inv16.data(),
-                      child16.data(), col8.data());
-    if (gbtpu_timing()) { double q = gbtpu_now(); t_benes += q - tp; tp = q; }
-    // bits_loc is (lane, R); executor wants (R, lane) — blocked transpose
-    int32_t* bt = bits + t * N;
-    const int64_t BS = 64;
-    for (int64_t r0 = 0; r0 < R; r0 += BS)
-      for (int64_t l0 = 0; l0 < L; l0 += BS) {
-        const int64_t r1 = r0 + BS < R ? r0 + BS : R;
-        const int64_t l1 = l0 + BS < L ? l0 + BS : L;
-        for (int64_t l = l0; l < l1; ++l)
-          for (int64_t r = r0; r < r1; ++r)
-            bt[(r << 7) + l] = bits_loc[l * R + r];
-      }
-    if (gbtpu_timing()) { double q = gbtpu_now(); t_tr += q - tp; tp = q; }
-  }
-  if (gbtpu_timing())
-    std::fprintf(stderr,
-                 "[gbtpu] clos_route_tiles T=%lld R=%lld: complete %.2fs "
-                 "euler %.2fs emit %.2fs benes %.2fs transpose %.2fs\n",
-                 (long long)T, (long long)R, t_comp, t_euler, t_emit, t_benes,
-                 t_tr);
-  return 0;
-}
-
-// ---------------------------------------------------------------------------
-// monotone_pack: native plan for the 2-step monotone concentrator
-// (static_route.monotone_pack_plan).  Element e of tile t (sorted raster
-// positions marked[t*K + k], k-th marked -> raster position k) gets one
-// stage-1 lane-gather index and log2(R) LSB-first sublane-shift mask bits.
-// Replaces the numpy version whose per-level np.unique sorts and E-sized
-// boolean scatters dominated plan build.  Collision detection: stamp[pos]
-// records the last level that occupied pos; seeing stamp[pos]==b twice in
-// level b means two elements collided (returns -1; the caller falls back
-// to the full Clos route).  Returns 0 on success, -2 on non-convergence.
-// ---------------------------------------------------------------------------
-int gbtpu_monotone_pack(const int64_t* marked, int64_t T, int64_t K,
-                        int64_t R, int8_t* lidx, int32_t* bits,
-                        int32_t* q_scratch, int8_t* stamp) {
-  const int64_t L = 128;
-  int nb = 0;
-  while ((1LL << nb) < R) ++nb;
-  if ((1LL << nb) != R || nb > 15) return -3;
-  const int64_t E = T * K;
-  std::memset(lidx, 0, (size_t)T * R * L);
-  std::memset(bits, 0, (size_t)T * R * L * 4);
-  std::memset(stamp, -1, (size_t)T * R * L);
-  for (int64_t e = 0; e < E; ++e) {
-    const int64_t t = e / K, k = e % K;
-    const int64_t mm = marked[e];
-    const int64_t s_of = mm >> 7;
-    lidx[((t * R + s_of) << 7) + (k & 127)] = (int8_t)(mm & 127);
-    q_scratch[e] = (int32_t)s_of;
-  }
-  for (int b = 0; b < nb; ++b) {
-    for (int64_t e = 0; e < E; ++e) {
-      const int64_t t = e / K, k = e % K;
-      const int64_t dest_sub = k >> 7, dest_lane = k & 127;
-      int64_t q = q_scratch[e];
-      const int delta = (int)((dest_sub >> b) & 1) - (int)((q >> b) & 1);
-      const int64_t newq = q + (int64_t)delta * (1LL << b);
-      const int64_t pos = ((t * R + newq) << 7) + dest_lane;
-      if (stamp[pos] == (int8_t)b) return -1;
-      stamp[pos] = (int8_t)b;
-      if (delta < 0)
-        bits[pos] |= (int32_t)(1 << b);
-      else if (delta > 0)
-        bits[pos] |= (int32_t)(1 << (nb + b));
-      q_scratch[e] = (int32_t)newq;
-    }
-  }
-  for (int64_t e = 0; e < E; ++e)
-    if (q_scratch[e] != (int32_t)((e % K) >> 7)) return -2;
-  return 0;
-}
-
-// ---------------------------------------------------------------------------
-// gp_build: single-pass construction of the 2-phase global-permute
-// scatter inputs.  Replaces ~8 npad-sized numpy intermediates (s_tile,
-// key, slot, p_in, p_mid, p_cat, ...) whose allocation+traffic was the
-// top cost of GlobalPermutePlan on this fault-bound host.
-// ---------------------------------------------------------------------------
-
-// Pass 1: per-(s_tile, d_tile) bucket counts (rows_pp sizing).
-void gbtpu_gp_counts(const int64_t* src, int64_t npad, int64_t T,
-                     int64_t tile_elems, int64_t* counts) {
-  for (int64_t k = 0; k < T * T; ++k) counts[k] = 0;
-  for (int64_t p = 0; p < npad; ++p) {
-    const int64_t st = src[p] / tile_elems;
-    const int64_t dt = p / tile_elems;
-    counts[st * T + dt]++;
-  }
-}
-
-// Pass 2a: phase-1 permutation
-//   perm1[st*M1 + dt*rows_pp*128 + slot] = src[p] % tile_elems
-// Pass 2b (separate call so only one T*M1 buffer is live at a time;
-// slots re-derive identically from the same deterministic sweep):
-//   perm2[dt*M1 + p % tile_elems] = st*rows_pp*128 + slot
-// seen is T*T scratch (zeroed here); perm is -1-filled here.
-void gbtpu_gp_scatter(const int64_t* src, int64_t npad, int64_t T,
-                      int64_t tile_elems, int64_t rows_pp, int64_t M1,
-                      int32_t phase, int32_t* perm, int64_t* seen) {
-  const int64_t slab = rows_pp * 128;
-  for (int64_t k = 0; k < T * T; ++k) seen[k] = 0;
-  for (int64_t k = 0; k < T * M1; ++k) perm[k] = -1;
-  if (phase == 1) {
-    for (int64_t p = 0; p < npad; ++p) {
-      const int64_t s = src[p];
-      const int64_t st = s / tile_elems;
-      const int64_t dt = p / tile_elems;
-      const int64_t slot = seen[st * T + dt]++;
-      perm[st * M1 + dt * slab + slot] = (int32_t)(s % tile_elems);
-    }
-  } else {
-    for (int64_t p = 0; p < npad; ++p) {
-      const int64_t s = src[p];
-      const int64_t st = s / tile_elems;
-      const int64_t dt = p / tile_elems;
-      const int64_t slot = seen[st * T + dt]++;
-      perm[dt * M1 + p % tile_elems] = (int32_t)(st * slab + slot);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// gather_pack: GatherPlan.__init__'s entry sweep — per entry the class key
-// (window*128 + residue) and lane id, plus per-class and per-column counts,
-// in ONE pass with no nnz-sized numpy temporaries (the former w/res/hi/key
-// bincount pipeline allocated ~6 fresh nnz arrays on a fault-bound host).
-// ---------------------------------------------------------------------------
-void gbtpu_gather_pack(const int64_t* ci, int64_t nnz, int64_t n,
-                       int64_t win, int64_t W, int64_t* key, int64_t* hi,
-                       int64_t* cls_cnt) {
-  memset(cls_cnt, 0, (size_t)W * 128 * 8);
-  for (int64_t e = 0; e < nnz; ++e) {
-    const int64_t c = ci[e];
-    const int64_t k = (c / win) * 128 + (c & 127);
-    key[e] = k;
-    hi[e] = (c >> 7) & 127;
-    cls_cnt[k]++;
-  }
-}
-
-// Column counts (only needed when some class overloads — the hub path).
-void gbtpu_colcount(const int64_t* ci, int64_t nnz, int64_t n,
-                    int64_t* colcnt) {
-  memset(colcnt, 0, (size_t)n * 8);
-  for (int64_t e = 0; e < nnz; ++e) colcnt[ci[e]]++;
-}
-
-// ---------------------------------------------------------------------------
-// fill_balanced natives: the route plan's free-destination/free-source
-// pairing (leveled (src-tile, dst-tile) buckets) without the numpy
-// flatnonzero/bincount/argsort pipeline (~12 s of the 2^18 plan build).
-// ---------------------------------------------------------------------------
-
-// Pass 1: per-(s_tile, d_tile) real bucket counts, per-tile free-dst
-// counts D, and the used-source bitmap.
-void gbtpu_fill_counts(const int64_t* perm, int64_t N, int64_t slots,
-                       int64_t T, int64_t* real_cnt, int64_t* D,
-                       uint8_t* used) {
-  memset(real_cnt, 0, (size_t)T * T * 8);
-  memset(D, 0, (size_t)T * 8);
-  memset(used, 0, (size_t)N);
-  for (int64_t p = 0; p < N; ++p) {
-    const int64_t s = perm[p];
-    if (s >= 0) {
-      real_cnt[(s / slots) * T + p / slots]++;
-      used[s] = 1;
-    } else {
-      D[p / slots]++;
-    }
-  }
-}
-
-// Pass 2: per-tile counts of the first K unused sources (global ascending
-// order — matches numpy's flatnonzero(~used)[:K]).
-void gbtpu_free_src_counts(const uint8_t* used, int64_t N, int64_t K,
-                           int64_t slots, int64_t T, int64_t* S) {
-  memset(S, 0, (size_t)T * 8);
-  int64_t taken = 0;
-  for (int64_t p = 0; p < N && taken < K; ++p)
-    if (!used[p]) {
-      S[p / slots]++;
-      ++taken;
-    }
-}
-
-// Pass 3: assign free destinations (d-tile ascending, position ascending)
-// to free sources per the fill[s][d] quotas, sources consumed per tile in
-// ascending order.  Equivalent to the numpy repeat + stable counting sort
-// pairing.  Returns 0, or -1 if a cursor ran off its domain (quota bug).
-int gbtpu_fill_assign(int64_t* perm, const uint8_t* used,
-                      const int64_t* fill, int64_t N, int64_t slots,
-                      int64_t T) {
-  std::vector<int64_t> cs(T);
-  for (int64_t s = 0; s < T; ++s) cs[s] = s * slots;
-  int64_t pd = 0;
-  for (int64_t d = 0; d < T; ++d) {
-    pd = d * slots;
-    const int64_t pend = (d + 1) * slots;
-    for (int64_t s = 0; s < T; ++s) {
-      int64_t q = fill[s * T + d];
-      const int64_t send = (s + 1) * slots;
-      while (q-- > 0) {
-        while (cs[s] < send && used[cs[s]]) ++cs[s];
-        if (cs[s] >= send) return -1;
-        while (pd < pend && perm[pd] >= 0) ++pd;
-        if (pd >= pend) return -1;
-        perm[pd++] = cs[s]++;
-      }
-    }
-  }
-  return 0;
-}
-
-// ---------------------------------------------------------------------------
-// route_perm: the SpmvRoutePlan destination layout in one sweep — per-row
-// within-tile offsets (one sentinel slot after each row, rows never
-// straddling tiles), per-entry destination slots, and the partial
-// permutation perm[dst] = pos[e] (-1 elsewhere).  Replaces ~10 mpad/nnz/
-// Ndst-sized numpy intermediates (arange/cumsum/repeat/scatter).
-// counts has mpad entries (0-padded past the real rows).  row_of/within_of
-// are the heavy-row split maps (pass NULL when rows are unsplit, in which
-// case ip (m0+1) gives each row's entry range).
-// ---------------------------------------------------------------------------
-void gbtpu_route_perm(const int64_t* counts, int64_t mpad, int64_t YT,
-                      int64_t slots, const int64_t* ip, int64_t m0,
-                      const int64_t* row_of, const int64_t* within_of,
-                      const int64_t* pos, int64_t nnz, int64_t Ndst,
-                      int64_t* perm, int64_t* sent) {
-  std::vector<int64_t> row_base(mpad);
-  int64_t cum = 0;
-  for (int64_t r = 0; r < mpad; ++r) {
-    if (r % YT == 0) cum = 0;
-    row_base[r] = (r / YT) * slots + cum;
-    sent[r] = cum + counts[r];
-    cum += counts[r] + 1;
-  }
-  for (int64_t p = 0; p < Ndst; ++p) perm[p] = -1;
-  if (row_of) {
-    for (int64_t e = 0; e < nnz; ++e)
-      perm[row_base[row_of[e]] + within_of[e]] = pos[e];
-  } else {
-    for (int64_t r = 0; r < m0; ++r) {
-      const int64_t base = row_base[r];
-      const int64_t e0 = ip[r], e1 = ip[r + 1];
-      for (int64_t e = e0; e < e1; ++e) perm[base + (e - e0)] = pos[e];
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// gather_finalize: GatherPlan.finalize in one sweep — per entry, the
-// hashed band spread + packed position + hi/val scatters, with no
-// nnz-sized numpy intermediates.  Semantics match the numpy original
-// exactly (int64 wraparound hash, non-negative modulo).
-// ---------------------------------------------------------------------------
-void gbtpu_gather_finalize(const int64_t* key, const int32_t* slot,
-                           const int64_t* counts, const float* vv,
-                           const int64_t* hi, int64_t nnz, int64_t W,
-                           int64_t RBL, int8_t* hi_arr, float* val_arr,
-                           int64_t* pos) {
-  const int64_t Q = RBL / 128;
-  const int64_t total = W * RBL * 128;
-  memset(hi_arr, 0xFF, (size_t)total);  // -1 = dummy slot (semiring-generic identity marker)
-  memset(val_arr, 0, (size_t)total * sizeof(float));
-  const int64_t HASH = 2654435761LL;
-  for (int64_t e = 0; e < nnz; ++e) {
-    const int64_t k = key[e];
-    const int64_t s = slot[e];
-    int64_t P = (counts[k] + 127) >> 7;
-    if (P < 1) P = 1;
-    int64_t base = (k * HASH) % Q;        // int64 wraps like numpy
-    if (base < 0) base += Q;              // numpy % is non-negative
-    const int64_t band = (base + (s >> 7) * Q / P) % Q;
-    const int64_t w = k >> 7, res = k & 127;
-    const int64_t prow = w * RBL + band * 128 + res;
-    const int64_t p = prow * 128 + (s & 127);
-    hi_arr[p] = (int8_t)hi[e];
-    val_arr[p] = vv[e];
-    pos[e] = p;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// route-plan plane composition (round-5 gather diet): fold the phase-1
-// lane gathers into the plan planes in place.  hi/val[/val_lo] rows are
-// permuted by ii1 (row map g -> (g/TR)*R1 + g%TR); ii2 rows compose with
-// io1 (mid-row map: dest tile tp, local row r2 = s*rows_pp + j  <->
-// io1 row s*R1 + tp*rows_pp + j).  The numpy equivalent cost ~8 s of
-// fancy-indexing at bench scale; these are plain streaming loops.
-// ---------------------------------------------------------------------------
-extern "C" void gbtpu_compose_gather(int8_t* hi, float* val, float* val_lo,
-                                     const int8_t* ii1, int64_t G,
-                                     int64_t TR, int64_t R1) {
-  int8_t th[128];
-  float tv[128], tl[128];
-  for (int64_t g = 0; g < G; ++g) {
-    const int8_t* sel = ii1 + ((g / TR) * R1 + (g % TR)) * 128;
-    int8_t* h = hi + g * 128;
-    float* v = val + g * 128;
-    for (int l = 0; l < 128; ++l) {
-      th[l] = h[sel[l]];
-      tv[l] = v[sel[l]];
-    }
-    memcpy(h, th, 128);
-    memcpy(v, tv, 512);
-    if (val_lo) {
-      float* vl = val_lo + g * 128;
-      for (int l = 0; l < 128; ++l) tl[l] = vl[sel[l]];
-      memcpy(vl, tl, 512);
-    }
-  }
-}
-
-extern "C" void gbtpu_compose_ii2(int8_t* ii2, const int8_t* io1,
-                                  int64_t T, int64_t rows_pp, int64_t R1,
-                                  int64_t R2) {
-  int8_t tmp[128];
-  const int64_t npp = T * rows_pp;
-  for (int64_t tp = 0; tp < T; ++tp)
-    for (int64_t r2 = 0; r2 < npp; ++r2) {
-      const int8_t* a = io1 + ((r2 / rows_pp) * R1 + tp * rows_pp
-                               + (r2 % rows_pp)) * 128;
-      int8_t* b = ii2 + (tp * R2 + r2) * 128;
-      for (int l = 0; l < 128; ++l) tmp[l] = a[b[l]];
-      memcpy(b, tmp, 128);
-    }
-}
-
-// ---------------------------------------------------------------------------
-// spgemm_layout: the SELL SpGEMM layout sweep — one O(m) pass assigning
-// every output row a padded slot range (multiple of SEGW slots, never
-// straddling a sort tile), a rank within its tile (for key packing), and
-// splitting the padded slot space into fixed-size blocks under segment /
-// entry / row / token budgets.  The TPU analog of the coarse-task slicing
-// in the reference (Source/GB_AxB_saxpy3_slice_balanced); sequential by
-// nature, hence native.
-//
-// row_nseg: per-row segment count (0 = empty or fallback row)
-// row_nent: per-row REAL entry count (A degree)
-// row_tok:  1 if the row carries a token (mask) entry
-// Outputs: row_startseg (m+1; [m] = total padded segs rounded to blk_segs),
-// tile_rank (m), block starts blk_r0/e0/t0/seg0 (max_blocks each).
-// Returns nblocks, or -1 if max_blocks would be exceeded.
-int64_t gbtpu_spgemm_layout(const int64_t* row_nseg, const int64_t* row_nent,
-                            const uint8_t* row_tok, int64_t m,
-                            int64_t tile_segs, int64_t blk_segs,
-                            int64_t blk_ents, int64_t blk_rows,
-                            int64_t* row_startseg, int32_t* tile_rank,
-                            int64_t* blk_r0, int64_t* blk_e0,
-                            int64_t* blk_t0, int64_t* blk_seg0,
-                            int64_t max_blocks) {
-  int64_t cursor = 0;      // segs
-  int64_t ecur = 0;        // real entries consumed
-  int64_t tcur = 0;        // token entries consumed
-  int64_t nblk = 0;
-  int64_t rank = 0;        // rows started in the current tile
-  int64_t tile0 = 0;       // current tile start (segs)
-  for (int64_t r = 0; r < m; ++r) {
-    int64_t s = row_nseg[r];
-    int64_t ne = row_nent[r];
-    int64_t nt = row_tok ? (int64_t)row_tok[r] : 0;
-    if (s > 0) {
-      // tile bump: rows never straddle a tile
-      if (cursor - tile0 + s > tile_segs) {
-        tile0 += tile_segs;
-        cursor = tile0;
-        rank = 0;
-      }
-      // block budgets (segment space, real entries, rows, tokens)
-      const int64_t base = nblk > 0 ? blk_seg0[nblk - 1] : 0;
-      const bool need_block =
-          nblk == 0 || (cursor + s) - base > blk_segs ||
-          (ecur + ne) - blk_e0[nblk - 1] > blk_ents ||
-          (r + 1) - blk_r0[nblk - 1] > blk_rows ||
-          (tcur + nt) - blk_t0[nblk - 1] > blk_rows;
-      if (need_block) {
-        if (nblk >= max_blocks) return -1;
-        cursor = ((cursor + blk_segs - 1) / blk_segs) * blk_segs;
-        if (nblk > 0 && cursor == base) cursor += blk_segs;  // force new
-        if (nblk == 0) cursor = 0;
-        tile0 = cursor;
-        rank = 0;
-        blk_r0[nblk] = r;
-        blk_e0[nblk] = ecur;
-        blk_t0[nblk] = tcur;
-        blk_seg0[nblk] = cursor;
-        ++nblk;
-      }
-      row_startseg[r] = cursor;
-      tile_rank[r] = (int32_t)rank;
-      cursor += s;
-      ++rank;
-    } else {
-      row_startseg[r] = cursor;
-      tile_rank[r] = 0;
-    }
-    ecur += ne;
-    tcur += nt;
-  }
-  row_startseg[m] = ((cursor + blk_segs - 1) / blk_segs) * blk_segs;
-  if (nblk == 0) {
-    blk_r0[0] = 0; blk_e0[0] = 0; blk_t0[0] = 0; blk_seg0[0] = 0;
-    nblk = 1;
-    if (row_startseg[m] == 0) row_startseg[m] = blk_segs;
-  }
-  return nblk;
 }
 
 }  // extern "C"

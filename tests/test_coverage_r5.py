@@ -1,134 +1,9 @@
-"""Round-5 coverage push (VERDICT r4 weak #9): exercise the fallback
-tiers users hit when the preferred path is unavailable — the one-hot MXU
-executor, the static_route numpy planners (no native library), and the
-global_permute standalone executor."""
+"""Round-5 coverage push: user-comparator sort and terminal early-exit
+reduce."""
 
 import numpy as np
-import pytest
-import scipy.sparse as sp
 
-import jax
 import jax.numpy as jnp
-
-from graphblas_tpu.kernels import spmv_onehot as OH
-from graphblas_tpu.kernels import static_route as SRT
-from graphblas_tpu.utils import native as NV
-
-
-@pytest.fixture
-def rng():
-    return np.random.default_rng(5)
-
-
-def test_onehot_spmv_executor(rng):
-    """The one-hot tier end-to-end (plan + Pallas executor, interpret on
-    CPU) — the production fallback when no route plan is cached."""
-    n = 700
-    S = sp.random(n, n, density=0.01, format="csr", random_state=2,
-                  dtype=np.float32)
-    x = rng.standard_normal(n).astype(np.float32)
-    y = np.asarray(OH.spmv(jnp.asarray(S.indptr), jnp.asarray(S.indices),
-                           jnp.asarray(S.data), jnp.asarray(x), n))
-    want = S.astype(np.float64) @ x.astype(np.float64)
-    err = np.abs(y - want).max() / (np.abs(want).max() + 1e-30)
-    assert err < 1e-4, err
-
-
-def test_onehot_spmv_empty_and_rect(rng):
-    # rectangular + empty rows exercise the plan's padding branches
-    m, n = 300, 900
-    S = sp.random(m, n, density=0.004, format="csr", random_state=3,
-                  dtype=np.float32)
-    x = rng.standard_normal(n).astype(np.float32)
-    y = np.asarray(OH.spmv(jnp.asarray(S.indptr), jnp.asarray(S.indices),
-                           jnp.asarray(S.data), jnp.asarray(x), m))
-    want = S.astype(np.float64) @ x.astype(np.float64)
-    assert np.allclose(y, want, rtol=1e-4, atol=2e-4)  # bf16-split abs err ~2^-16 x row mass
-
-
-def _kill_native(monkeypatch):
-    monkeypatch.setattr(NV, "cycle_2color", lambda *a, **k: None)
-    monkeypatch.setattr(NV, "benes_route_bits", lambda *a, **k: None)
-    monkeypatch.setattr(NV, "monotone_pack", lambda *a, **k: None)
-    monkeypatch.setattr(NV, "clos_lanes", lambda *a, **k: None)
-    monkeypatch.setattr(NV, "clos_route_tiles", lambda *a, **k: None)
-    monkeypatch.setattr(NV, "gp_counts", lambda *a, **k: None)
-    monkeypatch.setattr(NV, "gp_scatter", lambda *a, **k: None)
-
-
-def test_benes_route_numpy(rng, monkeypatch):
-    _kill_native(monkeypatch)
-    B, M = 3, 64
-    perm = np.stack([rng.permutation(M) for _ in range(B)])
-    dists, masks = SRT.benes_route(perm)
-    x = rng.standard_normal((B, M)).astype(np.float32)
-    # host-apply the network
-    y = x.copy()
-    for d, mk in zip(dists, masks):
-        part = y.copy()
-        for i in range(M):
-            part[:, i] = np.where(mk[:, i], y[:, i ^ d], y[:, i])
-        y = part
-    np.testing.assert_array_equal(y, np.take_along_axis(x, perm, axis=1))
-
-
-def test_clos_route_and_tile_permute_numpy(rng, monkeypatch):
-    _kill_native(monkeypatch)
-    R = 16
-    perm = rng.permutation(R * 128)
-    plan = SRT.clos_route(perm, R)
-    x = jnp.asarray(rng.standard_normal((R, 128)).astype(np.float32))
-    y = np.asarray(SRT.tile_permute(x, plan, interpret=True))
-    want = np.asarray(x).reshape(-1)[perm].reshape(R, 128)
-    np.testing.assert_array_equal(y, want)
-
-
-def test_sublane_permute_roundtrip(rng):
-    R = 32
-    perm = np.stack([rng.permutation(R) for _ in range(128)], axis=1)
-    # per-lane permutation: route via benes on columns
-    perm_b = np.ascontiguousarray(perm.T)        # (128, R)
-    dists, bits = SRT.benes_route_packed(perm_b)
-    bits_t = np.ascontiguousarray(bits.T)        # (R, 128)
-    x = rng.standard_normal((R, 128)).astype(np.float32)
-    y = np.asarray(SRT.sublane_permute(jnp.asarray(x),
-                                       jnp.asarray(bits_t), dists,
-                                       interpret=True))
-    want = np.take_along_axis(x, perm, axis=0)
-    np.testing.assert_array_equal(y, want)
-
-
-def test_global_permute_numpy_plan(rng, monkeypatch):
-    _kill_native(monkeypatch)
-    n = 2 * SRT.TILE_R * 128
-    perm = rng.permutation(n)
-    plan = SRT.GlobalPermutePlan(perm, n)
-    x = jnp.asarray(rng.standard_normal(n).astype(np.float32))
-    y = np.asarray(SRT.global_permute(x, plan, interpret=True))
-    np.testing.assert_array_equal(y, np.asarray(x)[perm])
-
-
-def test_monotone_pack_up_matches_dualroll(rng):
-    """Up-only pack plan agrees with the dual-roll plan's delivery."""
-    R, K = 64, 256
-    # sorted marked positions, at most 128 per sublane, q >= dest
-    marked = np.sort(rng.choice(R * 128, size=K, replace=False))
-    # ensure q >= dq (monotone concentration premise)
-    marked = np.maximum(marked, np.arange(K))
-    marked = np.sort(marked)[None, :]
-    lidx_u, bits_u = SRT.monotone_pack_plan_up(marked, R)
-    x = rng.standard_normal((R, 128)).astype(np.float32)
-    # numpy emulation of _pack_stages_up (roll = receive-from-below)
-    y = np.take_along_axis(x, lidx_u.astype(np.int64), axis=1)
-    nb = int(np.log2(R))
-    for b in range(nb):
-        d = 1 << b
-        frombelow = np.roll(y, -d, axis=0)
-        m = ((bits_u >> b) & 1) == 1
-        y = np.where(m, frombelow, y)
-    flat = x.reshape(-1)
-    for k in range(K):
-        assert y[k >> 7, k & 127] == flat[marked[0, k]]
 
 
 def test_sort_user_comparator():

@@ -1,6 +1,6 @@
 """Round-5 second coverage batch: @GrB operator sugar, the legacy
-(struct-payload) union-merge engine, the op-layer route_monoid tier, and
-the chunk-padded dense-x-dense generic-semiring path."""
+(struct-payload) union-merge engine, and the chunk-padded dense-x-dense
+generic-semiring path."""
 
 import numpy as np
 import pytest
@@ -62,35 +62,8 @@ def test_struct_payload_legacy_merge():
     assert got[(2, 0)] == [4, 5]
 
 
-def test_op_layer_route_monoid_tier():
-    """MIN_PLUS mxv through the public op layer with an optimized plan
-    (ops/mxm._spmm route_monoid branch)."""
-    n = 1500
-    S = sp.random(n, n, density=0.01, format="csr", random_state=3,
-                  dtype=np.float32)
-    S.data = np.abs(S.data) + 0.1
-    coo = S.tocoo()
-    A = gb.Matrix.from_coo(coo.row, coo.col, coo.data, (n, n))
-    A.optimize()
-    x = np.abs(np.random.default_rng(0).standard_normal(n)) \
-        .astype(np.float32)
-    w = gb.mxv(A, gb.Vector.from_dense(x), SR.MIN_PLUS)
-    got, pres = (np.asarray(a) for a in w.to_dense_pair())
-    D = np.full((n, n), np.inf, np.float32)
-    D[S.nonzero()] = np.asarray(S[S.nonzero()]).ravel()
-    want = (D + x[None, :]).min(axis=1)
-    fin = np.isfinite(want)
-    assert (pres.ravel() == fin).all()
-    assert np.isclose(got.ravel()[fin], want[fin], rtol=1e-5).all()
-    # max_second through the same tier
-    w2 = gb.mxv(A, gb.Vector.from_dense(x), SR.MAX_SECOND)
-    want2 = np.where(D < np.inf, x[None, :], -np.inf).max(axis=1)
-    g2 = np.asarray(w2.to_dense_pair()[0]).ravel()
-    assert np.isclose(g2[fin], want2[fin], rtol=1e-6).all()
-
-
 def test_dense_dense_generic_chunked():
-    """Dense x dense under a non-MXU semiring with k not a multiple of
+    """Dense x dense under a non-matmul semiring with k not a multiple of
     the scan CHUNK (the kpad branch of the broadcast-reduce path)."""
     rng = np.random.default_rng(1)
     m, k, n = 600, 7001, 3     # CHUNK = min(k, 2^22/m) = 6990 -> kpad

@@ -1,5 +1,5 @@
 """Distributed layer tests on the 8-virtual-device CPU mesh (SURVEY.md §4
-point 7: multi-chip logic must run in CI without TPUs)."""
+point 7: multi-device logic must run in CI without accelerators)."""
 
 import jax
 import numpy as np
@@ -10,8 +10,6 @@ import scipy.sparse.csgraph as csg
 import graphblas_tpu as gb
 from graphblas_tpu import parallel as par
 from graphblas_tpu.core import semiring as sr
-
-pytestmark = pytest.mark.slow
 
 
 @pytest.fixture(scope="module")

@@ -18,8 +18,6 @@ FMT_PAIRS = [(gb.SPARSE, gb.SPARSE), (gb.SPARSE, gb.BITMAP),
              (gb.BITMAP, gb.SPARSE), (gb.BITMAP, gb.BITMAP),
              (gb.SPARSE, gb.FULL), (gb.FULL, gb.FULL)]
 
-pytestmark = pytest.mark.slow
-
 
 def _mk(rng, m, n, density, fmt, dtype=np.float64):
     if fmt == gb.FULL:

@@ -9,8 +9,6 @@ import graphblas_tpu as gb
 from graphblas_tpu.core import names as N
 from graphblas_tpu.core import types as T
 
-pytestmark = pytest.mark.slow
-
 
 def test_semiring_count_is_1553():
     names = N.semiring_names()

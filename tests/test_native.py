@@ -97,40 +97,3 @@ def test_mtx_pattern(tmp_path):
     A = gb.Matrix.from_mtx(p)
     np.testing.assert_allclose(A.to_scipy().toarray(),
                                [[0, 1], [1, 0]])
-
-
-def test_compose_planes_native_vs_numpy():
-    """Native plane-compose (round-5 gather diet) against the numpy
-    formulation; geometry with G > TR (the shape that exposed the
-    missing ctypes argtypes: a 7th int64 arg passes on the stack)."""
-    from graphblas_tpu.utils import native as NV
-    if not NV.available():
-        import pytest
-        pytest.skip("native library unavailable")
-    rng = np.random.default_rng(0)
-    G, TR, R1, T, rows_pp, R2 = 8192, 512, 512, 16, 16, 512
-    hi = rng.integers(-1, 128, (G, 128)).astype(np.int8)
-    val = rng.standard_normal((G, 128)).astype(np.float32)
-    ii1 = np.ascontiguousarray(rng.permuted(
-        np.tile(np.arange(128, dtype=np.int8), (T * R1, 1)), axis=1))
-    hi2, val2 = hi.copy(), val.copy()
-    assert NV.compose_gather(hi2, val2, None, ii1, TR, R1)
-    g = np.arange(G)
-    sel = ii1[(g // TR) * R1 + (g % TR)].astype(np.int32)
-    np.testing.assert_array_equal(hi2, np.take_along_axis(hi, sel, axis=1))
-    np.testing.assert_array_equal(val2,
-                                  np.take_along_axis(val, sel, axis=1))
-    ii2 = np.ascontiguousarray(rng.permuted(
-        np.tile(np.arange(128, dtype=np.int8), (T * R2, 1)), axis=1))
-    io1 = np.ascontiguousarray(rng.permuted(
-        np.tile(np.arange(128, dtype=np.int8), (T * R1, 1)), axis=1))
-    ii2c = ii2.copy()
-    assert NV.compose_ii2(ii2c, io1, T, rows_pp, R1, R2)
-    npp = T * rows_pp
-    tp = np.repeat(np.arange(T), npp)
-    r2 = np.tile(np.arange(npp), T)
-    src = (r2 // rows_pp) * R1 + tp * rows_pp + (r2 % rows_pp)
-    want = np.take_along_axis(io1[src], ii2.reshape(T, R2, 128)[:, :npp]
-                              .reshape(-1, 128).astype(np.int32), axis=1)
-    got = ii2c.reshape(T, R2, 128)[:, :npp].reshape(-1, 128)
-    np.testing.assert_array_equal(got, want)

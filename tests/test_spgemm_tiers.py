@@ -1,7 +1,6 @@
-"""Pin the alternative SpGEMM tiers (GB_SPGEMM_TIER=v1 scan-expansion
-engine, =classic argsort ESC) against the default SELL engine and scipy
-(round-4: the v1 tier regressed to dead code once SELL became default —
-this keeps every dispatchable tier exercised)."""
+"""The ESC SpGEMM (the one sparse x sparse path) against scipy: unmasked,
+masked and complemented, integer min-plus and plus-pair counts, each in a
+single block and tiled over several row blocks."""
 
 import numpy as np
 import pytest
@@ -9,7 +8,9 @@ import scipy.sparse as sps
 
 import graphblas_tpu as gb
 from graphblas_tpu.core import semiring as SR
+from graphblas_tpu.core import types as T
 from graphblas_tpu.core.descriptor import Descriptor
+from graphblas_tpu.ops import mxm as MXM
 
 
 def _rand(n, nnz, seed, dtype=np.float32):
@@ -22,9 +23,14 @@ def _rand(n, nnz, seed, dtype=np.float32):
     return S
 
 
-@pytest.mark.parametrize("tier", ["v1", "classic"])
-def test_tier_unmasked_plus_times(tier, monkeypatch):
-    monkeypatch.setenv("GB_SPGEMM_TIER", tier)
+@pytest.fixture(params=["one_block", "row_blocks"])
+def blocks(request, monkeypatch):
+    if request.param == "row_blocks":
+        monkeypatch.setattr(MXM, "SPGEMM_FLOP_BLOCK", 2048)
+    return request.param
+
+
+def test_tier_unmasked_plus_times(blocks):
     S = _rand(150, 1200, 0)
     A = gb.Matrix.from_scipy(S)
     C = gb.mxm(A, A, SR.PLUS_TIMES)
@@ -34,10 +40,8 @@ def test_tier_unmasked_plus_times(tier, monkeypatch):
     assert abs(got - want).max() < 1e-4
 
 
-@pytest.mark.parametrize("tier", ["v1", "classic"])
 @pytest.mark.parametrize("comp", [False, True])
-def test_tier_masked(tier, comp, monkeypatch):
-    monkeypatch.setenv("GB_SPGEMM_TIER", tier)
+def test_tier_masked(blocks, comp):
     S = _rand(120, 900, 1)
     A = gb.Matrix.from_scipy(S)
     M = gb.select(A, gb.operators.TRIL, -1)
@@ -50,10 +54,7 @@ def test_tier_masked(tier, comp, monkeypatch):
     assert np.allclose(got, want, rtol=1e-4)
 
 
-@pytest.mark.parametrize("tier", ["v1", "classic"])
-def test_tier_min_plus_int(tier, monkeypatch):
-    monkeypatch.setenv("GB_SPGEMM_TIER", tier)
-    from graphblas_tpu.core import types as T
+def test_tier_min_plus_int(blocks):
     S = _rand(100, 700, 2, np.int32)
     A = gb.Matrix.from_scipy(S)
     C = gb.mxm(A, A, SR.MIN_PLUS, out_dtype=T.INT64)
@@ -67,9 +68,7 @@ def test_tier_min_plus_int(tier, monkeypatch):
     assert np.array_equal(got[pat], want[pat])
 
 
-def test_tier_v1_pair_counts(monkeypatch):
-    monkeypatch.setenv("GB_SPGEMM_TIER", "v1")
-    from graphblas_tpu.core import types as T
+def test_pair_counts(blocks):
     S = _rand(100, 900, 3)
     A = gb.Matrix.from_scipy(S)
     C = gb.mxm(A, A, SR.PLUS_PAIR, out_dtype=T.INT64)

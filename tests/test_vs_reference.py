@@ -21,11 +21,8 @@ from graphblas_tpu.core.descriptor import Descriptor
 
 FIXDIR = os.path.join(os.path.dirname(__file__), "fixtures", "ref")
 
-pytestmark = [
-    pytest.mark.slow,
-    pytest.mark.skipif(not os.path.isdir(FIXDIR),
-                       reason="reference fixtures not present"),
-]
+pytestmark = pytest.mark.skipif(not os.path.isdir(FIXDIR),
+                                reason="reference fixtures not present")
 
 MASK64 = (1 << 64) - 1
 
